@@ -1,0 +1,62 @@
+"""Carry state across from the JAX package, as numpy arrays.
+
+No JAX counterpart.  Nothing here imports jax: the inputs are what
+``jax.device_get`` returns for the JAX package's objects (the same classes,
+with numpy leaves), read by attribute.  With these, a test runs the port's
+cycles on exactly the operators the JAX package built.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.stencil import StencilOperator
+from ..models.mad import Hierarchy
+from ..ops.coarse import CoarseSolver
+from ..ops.compressed import CompressedDCAOperator
+
+
+def _t(a, dtype=None, device=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=device).to(dtype=dtype)
+
+
+def tensor_from_numpy(planes, dtype=None, device=None) -> torch.Tensor:
+    """The JAX package's tensor-plane tuple -> the port's ``(S, *shape)``
+    stack."""
+    return torch.stack([_t(p, dtype, device) for p in planes]).contiguous()
+
+
+def operator_from_numpy(op, dtype=None, device=None):
+    """A JAX ``CompressedDCAOperator`` (``face_p``/``face_m``/``mixed``/
+    ``diag_plane``) or ``StencilOperator`` (``coeffs``/``offsets``) with
+    numpy leaves -> the port's operator."""
+    if hasattr(op, "face_p"):
+        ndim = len(op.face_p)
+        planes = []
+        for d in range(ndim):
+            planes += [op.face_p[d], op.face_m[d]]
+        planes += list(op.mixed) + [op.diag_plane]
+        return CompressedDCAOperator(tensor_from_numpy(planes, dtype, device), ndim)
+    return StencilOperator(tensor_from_numpy(op.coeffs, dtype, device), op.offsets)
+
+
+def solver_from_numpy(solver, dtype=None, device=None) -> CoarseSolver:
+    """A JAX ``CoarseSolver`` with numpy leaves -> the port's.  JAX's pivots
+    are 0-based; ``torch.linalg.lu_solve`` takes LAPACK's 1-based ones."""
+    return CoarseSolver(
+        inv=_t(solver.inv, dtype, device),
+        lu=_t(solver.lu, dtype, device),
+        piv=_t(np.asarray(solver.piv) + 1, torch.int32, device),
+        inv_ok=bool(np.asarray(solver.inv_ok)),
+        shape=tuple(solver.shape),
+    )
+
+
+def hierarchy_from_numpy(hier, dtype=None, device=None) -> Hierarchy:
+    """A JAX ``Hierarchy`` after ``jax.device_get`` -> the port's
+    :class:`Hierarchy` on ``device`` (in ``dtype`` if given)."""
+    return Hierarchy(
+        operators=tuple(operator_from_numpy(op, dtype, device) for op in hier.operators),
+        solver=solver_from_numpy(hier.solver, dtype, device),
+    )

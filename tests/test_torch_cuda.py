@@ -1,0 +1,121 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
+``python -m pytest -m cuda tests/test_torch_cuda.py`` runs them on a machine
+with a card.  They mirror the kernel phase of ``chip_smoke.py`` at the
+(69, 77, 69) hierarchy's levels (vertex centring) and a small all-cell
+pair.  Tolerances: float64 1e-12 and float32 1e-5 of the largest reference
+value (the kernels sum in another order than the plain versions); bf16 one
+bf16 ulp of each reference value (both compute in float32 and round once),
+with the float32 floor for values near zero.
+"""
+
+import pytest
+import torch
+
+from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
+from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+from multigridanisotropicdiffusion_tpu_torch.ops import cuda_assemble, cuda_smoothers
+from multigridanisotropicdiffusion_tpu_torch.ops import cuda_transfer, transfer
+from multigridanisotropicdiffusion_tpu_torch.ops.compressed import assemble_compressed_dca
+
+pytestmark = pytest.mark.cuda
+
+LEVELS = build_level_descriptors((69, 77, 69)) + build_level_descriptors((32, 32, 32))
+DTYPES = [torch.float64, torch.float32, torch.bfloat16]
+COUNTERS = (cuda_smoothers.halfsweep, cuda_smoothers.cuda_residual,
+            cuda_transfer.cuda_restrict, cuda_transfer.cuda_prolong,
+            cuda_assemble.cuda_assemble_compressed_dca)
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _check(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.double(), want.double()
+    scale = w.abs().max().item()
+    err = (g - w).abs()
+    if want.dtype == torch.bfloat16:
+        a = w.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+        assert bool((err <= torch.maximum(ulp, torch.full_like(ulp, 1e-5 * scale))).all())
+    else:
+        tol = 1e-12 if want.dtype == torch.float64 else 1e-5
+        assert err.max().item() <= tol * scale
+
+
+def _tensor(shape, device, gen):
+    g = torch.randn((3, 3, *shape), generator=gen, device=device)
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    t = torch.stack([(g[i] * g[j]).sum(0) + (2.0 if i == j else 0.0) for i, j in pairs])
+    return t
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("level", range(len(LEVELS)))
+def test_kernels_match_plain(device, level, dtype):
+    lvl = LEVELS[level]
+    gen = torch.Generator(device=device).manual_seed(level)
+    # the assembly kernel runs in the solve precision (f32/f64) only
+    t = _tensor(lvl.shape, device, gen).to(
+        torch.float32 if dtype == torch.bfloat16 else dtype)
+    plain = assemble_compressed_dca(t, lvl.spacing, 0.1)
+    if dtype != torch.bfloat16:
+        got = cuda_assemble.cuda_assemble_compressed_dca(t, lvl.spacing, 0.1)
+        _check(got.planes, plain.planes)
+    op = plain.astype(dtype)
+    x = torch.randn(lvl.shape, generator=gen, device=device).to(dtype) * 10
+    b = torch.randn(lvl.shape, generator=gen, device=device).to(dtype) * 10
+    for color in (0, 1):
+        _check(cuda_smoothers.halfsweep(op, x, b, color),
+               cuda_smoothers.halfsweep_plain(op, x, b, color))
+    _check(cuda_smoothers.cuda_residual(op, x, b),
+           cuda_smoothers.residual_plain(op, x, b))
+    if level + 1 < len(LEVELS) and LEVELS[level + 1].index == lvl.index + 1:
+        cent = LEVELS[level + 1].centering
+        _check(cuda_transfer.cuda_restrict(x, cent), transfer.restrict_plain(x, cent))
+        batch = t.to(dtype)
+        _check(cuda_transfer.cuda_restrict(batch, cent),
+               transfer.restrict_plain(batch, cent))
+        e = transfer.restrict_plain(x, cent)
+        _check(cuda_transfer.cuda_prolong(e, cent), transfer.prolong_plain(e, cent))
+    torch.cuda.synchronize()
+
+
+def test_kernel_wrappers_refuse_bad_input(device):
+    op = assemble_compressed_dca(torch.ones((6, 8, 8, 8), device=device), (1.0,) * 3, 0.1)
+    x = torch.ones((8, 8, 8), device=device)
+    with pytest.raises(TypeError):
+        cuda_smoothers.halfsweep(op, x.half(), x.half(), 0)
+    with pytest.raises(ValueError):
+        cuda_smoothers.halfsweep(op, x.transpose(0, 2), x, 0)
+    with pytest.raises(ValueError):
+        cuda_transfer.cuda_restrict(torch.ones((8, 8), device=device), ("c", "c"))
+    with pytest.raises(NotImplementedError, match="B13"):
+        mad_diffusion(torch.ones((16, 16), device=device), torch.ones((3, 16, 16)),
+                      config=MADConfig.cuda(), device=device)
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_solve_through_kernels_matches_plain(device, mixed_precision):
+    gen = torch.Generator(device=device).manual_seed(0)
+    shape = (40, 36, 33)
+    t = _tensor(shape, device, gen)
+    b = torch.rand(shape, generator=gen, device=device) * 255
+    cfg = MADConfig.cuda(mixed_precision, time_step=0.1, tolerance=1e-6, max_cycles=50)
+    for f in COUNTERS:
+        f.launches = 0
+    res = mad_diffusion(b, t, config=cfg, device=device)
+    assert all(f.launches > 0 for f in COUNTERS)
+    ref = mad_diffusion(b, t, config=MADConfig.cuda(
+        mixed_precision, use_kernels=False, time_step=0.1, tolerance=1e-6,
+        max_cycles=50), device=device)
+    for r in (res, ref):
+        assert float(r.final_residual[0]) <= 1e-6 and int(r.num_cycles[0]) < 50
+    rel = ((res.output - ref.output).norm() / ref.output.norm()).item()
+    assert rel <= 1e-4

@@ -1,0 +1,104 @@
+"""Port parity, transfers: restriction and prolongation against the JAX
+package's ``ops.transfer`` on every level of a (69, 77, 69) hierarchy (the
+vertex-centred chain), an all-cell 32^3 pair and 2D; and the transfer
+kernels' tap tables against the JAX package's 1-D matrices."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multigridanisotropicdiffusion_tpu.ops import galerkin_direct as jgd
+from multigridanisotropicdiffusion_tpu.ops import transfer as jtransfer
+from multigridanisotropicdiffusion_tpu_torch.core.grids import (
+    CELL,
+    VERTEX,
+    build_level_descriptors,
+)
+from multigridanisotropicdiffusion_tpu_torch.ops import transfer
+from multigridanisotropicdiffusion_tpu_torch.ops.cuda_transfer import (
+    cuda_prolong,
+    cuda_restrict,
+)
+
+VED_LEVELS = build_level_descriptors((69, 77, 69))
+CELL_LEVELS = build_level_descriptors((32, 32, 32))
+PAIRS = (
+    [(VED_LEVELS, i) for i in range(1, len(VED_LEVELS))]
+    + [(CELL_LEVELS, 1), (build_level_descriptors((17, 16)), 1)]
+)
+IDS = [f"{lv[i - 1].shape}->{lv[i].shape}" for lv, i in PAIRS]
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("levels,i", PAIRS, ids=IDS)
+def test_restrict_and_prolong_match_jax(levels, i):
+    fine, coarse = levels[i - 1].shape, levels[i].shape
+    cent = levels[i].centering
+    rng = np.random.default_rng(i)
+    u = rng.normal(size=fine)
+    e = rng.normal(size=coarse)
+
+    got = transfer.restrict(torch.as_tensor(u), cent)
+    assert tuple(got.shape) == coarse
+    assert _rel(got, jtransfer.restrict(jnp.asarray(u), cent)) <= 1e-13
+    got = transfer.prolong(torch.as_tensor(e), cent)
+    assert tuple(got.shape) == fine
+    assert _rel(got, jtransfer.prolong(jnp.asarray(e), cent)) <= 1e-13
+    # the kernel wrappers take the same plain path for a CPU tensor
+    if len(fine) == 3:
+        before = (cuda_restrict.launches, cuda_prolong.launches)
+        assert torch.equal(cuda_restrict(torch.as_tensor(u), cent),
+                           transfer.restrict_plain(torch.as_tensor(u), cent))
+        assert torch.equal(cuda_prolong(torch.as_tensor(e), cent),
+                           transfer.prolong_plain(torch.as_tensor(e), cent))
+        assert (cuda_restrict.launches, cuda_prolong.launches) == before
+
+
+def test_restrict_tensor_matches_jax():
+    lv = VED_LEVELS
+    rng = np.random.default_rng(7)
+    planes = rng.normal(size=(6, *lv[0].shape))
+    got = transfer.restrict_tensor(torch.as_tensor(planes), lv[1].centering,
+                                   use_kernels=True)
+    want = jtransfer.restrict_tensor(tuple(jnp.asarray(p) for p in planes),
+                                     lv[1].centering)
+    assert got.shape == (6, *lv[1].shape)
+    for k in range(6):
+        assert _rel(got[k], want[k]) <= 1e-13
+
+
+@pytest.mark.parametrize("n", [6, 7, 9, 16, 18, 35, 69, 77, 512])
+def test_tap_tables_match_jax_matrices(n):
+    cents = (VERTEX,) if n % 2 else (VERTEX, CELL)
+    for cent in cents:
+        for taps, matrix, width in (
+            (transfer.restrict_taps, jgd.restrict_matrix_1d, 4),
+            (transfer.prolong_taps, jgd.prolong_matrix_1d, 2),
+        ):
+            start, w = taps(n, cent)
+            want = np.asarray(matrix(n, cent))
+            dense = np.zeros_like(want)
+            for row, s in enumerate(start):
+                for t in range(width):
+                    if w[row, t]:
+                        dense[row, s + t] = w[row, t]
+            np.testing.assert_array_equal(dense, want)
+            np.testing.assert_array_equal(
+                transfer.restrict_matrix_1d(n, cent) if width == 4
+                else transfer.prolong_matrix_1d(n, cent), want)
+
+
+def test_bf16_plain_transfers_round_once():
+    """16-bit storage computes in float32 and rounds once, as the kernels do."""
+    lv = VED_LEVELS
+    u = torch.as_tensor(np.random.default_rng(8).normal(size=lv[0].shape),
+                        dtype=torch.bfloat16)
+    assert torch.equal(
+        transfer.restrict_plain(u, lv[1].centering),
+        transfer.restrict_plain(u.float(), lv[1].centering).bfloat16(),
+    )
