@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,26 +10,44 @@ Phases, one line or more each; any failure exits non-zero:
 2. build: compiles the kernels from ``multigridanisotropicdiffusion_tpu_torch/
    csrc`` and loads them;
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
-   device inputs (512^3 level 0, the 256^3 -> 128^3 all-cell pair, every
-   level of a (69, 77, 69) vertex-centred hierarchy), float32 and, for the
-   stencil and transfer kernels, bfloat16; median times by CUDA events;
+   device inputs.  The solve's kernels at 512^3 level 0, the 256^3 -> 128^3
+   all-cell pair and every level of a (69, 77, 69) vertex-centred hierarchy,
+   float32 and, for the stencil and transfer kernels, bfloat16.  The VED
+   kernels on a tube phantom: 512^3 float32 and bfloat16 storage with
+   sigma = 2 taps (r = 8), an odd (37, 45, 51) volume, and r = 32 (sigma = 2
+   at z spacing 0.25) on a small volume; B8 in its first and select
+   variants.  Median times by CUDA events, beside the library call that
+   computes the same function where there is one;
 4. reference: a small float64 solve through the kernels against a dense
    direct solve, and the float32 + bf16 path on the same input;
-5. main path: ``mad_diffusion`` at 512^3 with ``MADConfig.cuda()`` to a
-   relative residual of 1e-6, with every kernel's launch count read from
-   that run; then the same inputs with ``use_kernels=False``, which must
+5. MAD main path: ``mad_diffusion`` at 512^3 with ``MADConfig.cuda()`` to a
+   relative residual of 1e-6, with the solve kernels' launch counts read
+   from that run; then the same inputs with ``use_kernels=False``, which
+   must agree to 1e-4 relative L2;
+6. VED main path: ``ved(vol, config=VEDConfig.cuda(), device="cuda")`` on a
+   512^3 float32 tube phantom (5 scales, 8 z slabs, 5 diffusion steps), with
+   all nine kernels' launch counts read from that run; every step must
+   converge, the vesselness at a tube centre must exceed 0.1 with the
+   tensor's principal axis along the tube, and ``use_kernels=False`` must
    agree to 1e-4 relative L2.
 
-The line before the last is ``{"kernels": [...]}`` (name, source, the TPU
-kernel it replaces, launches in the main-path run, max abs error, kernel and
-plain milliseconds at 512^3 float32); the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}`` (name, route, source, the
+TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
+plain and library milliseconds, and the bound: the larger of the bytes the
+function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
+at 512^3 float32); the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances: float32 max |kernel - plain| <= 1e-5 max |plain| (the sums run
 in another order); bfloat16 |kernel - plain| <= one bf16 ulp of each plain
 value (both compute in float32 and round once), with the float32 bound as a
 floor for values near zero, where cancellation makes the float32 sums
-themselves differ.
+themselves differ.  B8's Hessian planes are compared where both versions
+took the same select decision (a flip at a near-tie with the incoming best
+is counted and must stay under 1e-6 of the voxels); B9's tensors where the
+top eigenvalue is not degenerate (gap >= 1e-4 of the matrix scale; there
+only the trace is compared, and the voxels where the two versions differ
+are counted and must stay under 1e-5 of the voxels).  The small volumes
+allow one such voxel.
 """
 
 import json
@@ -40,6 +58,14 @@ import time
 
 SHAPE = (512, 512, 512)
 DT = 0.1
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PARAMS = (0.5, 0.5, 5.0)  # VEDConfig's alpha, beta, gamma
+TENSOR_PARAMS = (0.01, 5.0, 10.0)  # epsilon, omega, sensitivity
+#: float operations per output voxel, counted from the kernels' sources
+#: (every add, multiply, compare-select and math-library call as one)
+OPS_FD_VESSELNESS = 170
+OPS_TENSOR_ASSEMBLY = 265
 KERNELS = {
     # name: (source, replaced Pallas kernel, phase-3 case reported)
     "stencil_halfsweep": (
@@ -66,6 +92,26 @@ KERNELS = {
         "multigridanisotropicdiffusion_tpu_torch/csrc/assemble_compressed.cu",
         "multigridanisotropicdiffusion_tpu/ops/pallas_assemble.py:245",
         "assemble_compressed f32",
+    ),
+    "conv_z": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/conv.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_conv.py:115",
+        "conv_z f32",
+    ),
+    "conv_yx": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/conv.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_conv.py:391",
+        "conv_yx f32",
+    ),
+    "fd_vesselness": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/vesselness.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py:130",
+        "fd_vesselness select f32",
+    ),
+    "tensor_assembly": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/vesselness.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py:217",
+        "tensor_assembly f32",
     ),
 }
 
@@ -113,13 +159,18 @@ def check(name, got, want):
     return max_err
 
 
-def median_ms(fn, reps):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+def median_ms(fn, reps, setup=None):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up;
+    ``setup`` runs before each launch, outside the timed window."""
     import torch
 
+    if setup:
+        setup()
     fn()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -128,6 +179,14 @@ def median_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound_ms(nbytes, ops):
+    """The least time for the work: bytes over the memory rate or float
+    operations over the float32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bench_tensor(shape, gen):
@@ -233,21 +292,222 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
     torch.cuda.empty_cache()
 
 
+def check_select(name, got, want, new_k, new_p, best_resp):
+    """B8's select variant: the response everywhere, the Hessian planes where
+    both versions took the same decision.  A flip must sit at a near-tie
+    (both new responses within 1e-5 max|resp| of the incoming best) and
+    flips must stay under 1e-6 of the voxels."""
+    err = check(f"{name} resp", got[0], want[0])
+    flip = (new_k > best_resp) != (new_p > best_resp)
+    n_flip = int(flip.sum())
+    scale = want[0].abs().max().item()
+    near = bool(((new_k - best_resp).abs()[flip] <= 1e-5 * scale).all()) and bool(
+        ((new_p - best_resp).abs()[flip] <= 1e-5 * scale).all())
+    log(f"  {name}: {n_flip} select flips at near-ties of {flip.numel()} voxels")
+    if not near or n_flip > max(1, 1e-6 * flip.numel()):
+        fail(f"{name}: {n_flip} select flips, near-ties only: {near}")
+    keep = ~flip
+    err = max(err, check(f"{name} h", got[1][:, keep], want[1][:, keep]))
+    return err
+
+
+def check_tensor(name, got, want, resp, h):
+    """B9: the tensor wherever the top eigenvalue is not degenerate (gap >=
+    1e-4 of the matrix scale).  At a degenerate voxel the eigenvector is
+    arbitrary: there only the trace is compared, and the voxels where the
+    two versions differ (beyond 1e-5 max|ref|) are counted and must stay
+    under 1e-5 of all.  bf16 storage makes exact ties common, so the count
+    is of the voxels that differ, not of the ties."""
+    from multigridanisotropicdiffusion_tpu_torch.ops.eigen3 import eigvalsh3
+
+    hm = h.to(resp.dtype)
+    w = eigvalsh3(hm)
+    degenerate = (w[2] - w[1]) < 1e-4 * hm.abs().amax(0)
+    del w, hm
+    n_deg = int(degenerate.sum())
+    scale = want.abs().max().item()
+    n_diff = int((degenerate & ((got - want).abs() > 1e-5 * scale).any(0)).sum())
+    trace_k = got[0] + got[3] + got[5]
+    trace_p = want[0] + want[3] + want[5]
+    trace_ok = bool(((trace_k - trace_p).abs()[degenerate]
+                     <= 1e-5 * trace_p.abs().max()).all())
+    log(f"  {name}: {n_deg} voxels with a degenerate top eigenvalue of "
+        f"{degenerate.numel()}, {n_diff} of them differ; traces agree there: "
+        f"{trace_ok}")
+    if n_diff > max(1, 1e-5 * degenerate.numel()) or not trace_ok:
+        fail(f"{name}: {n_diff} degenerate voxels differ, traces agree: {trace_ok}")
+    return check(name, got[:, ~degenerate], want[:, ~degenerate])
+
+
+def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
+    # keys: ("<kernel> <dtype>", tag), as the solve kernels' cases
+    """B6-B9 on one volume ``u`` (storage dtype): B6 over the sigma = 2 halo,
+    B7 on its output, B8 first (sigma = 1.245) and select (sigma = 2), B9 on
+    the winner.  With ``timed_runs``: CUDA-event medians, the library
+    yardsticks, and the bytes and operations of each call."""
+    import torch
+    import torch.nn.functional as F
+
+    from multigridanisotropicdiffusion_tpu_torch.models.ved import (
+        _make_assemble_fn,
+        vesselness_measure,
+    )
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_conv, cuda_vesselness
+    from multigridanisotropicdiffusion_tpu_torch.ops.cuda_conv import edge_pad
+    from multigridanisotropicdiffusion_tpu_torch.ops.hessian import (
+        fd_factors,
+        gaussian_kernels_1d,
+        kernel_radius,
+        smoothed_field_valid_z,
+    )
+
+    def fdv(us, facs, params, best=None):
+        # measure_fn is what the wrapper runs on a CPU tensor; the kernel has
+        # the formula compiled in
+        return cuda_vesselness.fd_vesselness(us, facs, params, best,
+                                             measure_fn=vesselness_measure)
+
+    s1, s2 = 1.245, 2.0
+    radius = kernel_radius(s2, spacing[0]) + 1
+    u_pad = edge_pad(u, radius).contiguous()
+    gz, gy, gx = (gaussian_kernels_1d(s2, h)[0] for h in spacing)
+    f1, f2 = fd_factors(s1, spacing), fd_factors(s2, spacing)
+    item = u.element_size()
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[u.dtype]
+
+    def key(name):
+        return (f"{name} {suffix}", tag)
+
+    def record(name, kernel, plain, library=None, setup=None):
+        if not timed_runs:
+            return
+        ms = median_ms(kernel, 10, setup)
+        plain_ms = median_ms(plain, 3, setup)
+        lib_ms = median_ms(library, 10) if library else None
+        timings[key(name)] = (ms, plain_ms, lib_ms)
+        log(f"    {name} {suffix} {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+
+    # B6, valid mode over the halo: (Z + 2r + 2) -> (Z + 2) planes
+    errs[key("conv_z")] = check(f"conv_z {suffix} {tag}", cuda_conv.conv_z(u_pad, gz, True),
+                                  cuda_conv.conv_z_plain(u_pad, gz, True))
+    wz = torch.as_tensor(gz, dtype=u.dtype, device="cuda").reshape(1, 1, -1, 1, 1)
+    u5 = u_pad[None, None]
+    record("conv_z", lambda: cuda_conv.conv_z(u_pad, gz, True),
+           lambda: cuda_conv.conv_z_plain(u_pad, gz, True),
+           lambda: F.conv3d(u5, wz))
+    zs = u_pad.shape[0] - (len(gz) - 1)
+    work[key("conv_z")] = ((u_pad.numel() + zs * u[0].numel()) * item,
+                             2 * len(gz) * zs * u[0].numel())
+    us2_z = cuda_conv.conv_z(u_pad, gz, True)
+    errs[key("conv_edge")] = check(f"conv_z edge {suffix} {tag}", cuda_conv.conv_z(u, gz),
+                                     cuda_conv.conv_z_plain(u, gz))
+
+    # B7 on B6's output; the library form is two calls: replicate-pad, conv3d
+    errs[key("conv_yx")] = check(f"conv_yx {suffix} {tag}", cuda_conv.conv_yx(us2_z, gy, gx),
+                                   cuda_conv.conv_yx_plain(us2_z, gy, gx))
+    ry, rx = (len(gy) - 1) // 2, (len(gx) - 1) // 2
+    wyx = torch.as_tensor(gy[:, None] * gx[None, :], dtype=u.dtype,
+                          device="cuda").reshape(1, 1, 1, len(gy), len(gx))
+    v5 = us2_z[None, None]
+    record("conv_yx", lambda: cuda_conv.conv_yx(us2_z, gy, gx),
+           lambda: cuda_conv.conv_yx_plain(us2_z, gy, gx),
+           lambda: F.conv3d(F.pad(v5, (rx, rx, ry, ry, 0, 0), mode="replicate"), wyx))
+    work[key("conv_yx")] = (2 * us2_z.numel() * item,
+                              2 * (len(gy) + len(gx)) * us2_z.numel())
+    us2 = cuda_conv.conv_yx(us2_z, gy, gx)
+    del us2_z, u5, v5
+    us1 = smoothed_field_valid_z(u_pad, s1, spacing, radius, use_kernels=True)
+    del u_pad
+
+    # B8, first and select variants
+    first = fdv(us1, f1, PARAMS)
+    want = cuda_vesselness.fd_vesselness_plain(us1, f1, PARAMS, None, vesselness_measure)
+    errs[key("fd_vesselness first")] = max(check(f"fd_vesselness first {suffix} {tag} resp",
+                                                   first[0], want[0]),
+                                             check(f"fd_vesselness first {suffix} {tag} h",
+                                                   first[1], want[1]))
+    del want
+    record("fd_vesselness first", lambda: fdv(us1, f1, PARAMS),
+           lambda: cuda_vesselness.fd_vesselness_plain(us1, f1, PARAMS, None,
+                                                       vesselness_measure))
+    n = first[0].numel()
+    resp_item = first[0].element_size()
+    work[key("fd_vesselness first")] = (us1.numel() * item + n * (resp_item + 6 * item),
+                                          OPS_FD_VESSELNESS * n)
+    new_k = fdv(us2, f2, PARAMS)[0]
+    new_p = cuda_vesselness.fd_vesselness_plain(us2, f2, PARAMS, None, vesselness_measure)[0]
+    incoming = (first[0].clone(), first[1].clone())
+    got = fdv(us2, f2, PARAMS, first)
+    want = cuda_vesselness.fd_vesselness_plain(us2, f2, PARAMS, incoming,
+                                               vesselness_measure)
+    errs[key("fd_vesselness select")] = check_select(
+        f"fd_vesselness select {suffix} {tag}", got, want, new_k, new_p, incoming[0])
+    winners = int((new_k > incoming[0]).sum())
+    del new_k, new_p, got
+
+    def restore():
+        first[0].copy_(incoming[0])
+        first[1].copy_(incoming[1])
+
+    record("fd_vesselness select", lambda: fdv(us2, f2, PARAMS, first),
+           lambda: cuda_vesselness.fd_vesselness_plain(us2, f2, PARAMS, incoming,
+                                                       vesselness_measure),
+           setup=restore)
+    # in place: read us and the best response, write the winners' 7 values
+    work[key("fd_vesselness select")] = (
+        us2.numel() * item + n * resp_item + winners * (resp_item + 6 * item),
+        OPS_FD_VESSELNESS * n)
+    if timed_runs:
+        log(f"    fd_vesselness select {suffix} {tag}: {winners} of {n} voxels win")
+    del first, incoming, us1, us2
+
+    # B9 on the winner
+    resp, h = want
+    assemble_fn = _make_assemble_fn(*TENSOR_PARAMS)
+    errs[key("tensor_assembly")] = check_tensor(
+        f"tensor_assembly {suffix} {tag}", cuda_vesselness.tensor_assembly(resp, h, *TENSOR_PARAMS, assemble_fn),
+        cuda_vesselness.tensor_assembly_plain(resp, h, assemble_fn), resp, h)
+    record("tensor_assembly", lambda: cuda_vesselness.tensor_assembly(resp, h, *TENSOR_PARAMS, assemble_fn),
+           lambda: cuda_vesselness.tensor_assembly_plain(resp, h, assemble_fn))
+    work[key("tensor_assembly")] = (n * (resp_item + 6 * item + 6 * resp_item),
+                                      OPS_TENSOR_ASSEMBLY * n)
+    del resp, h, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(gen):
+    import torch
+
     from multigridanisotropicdiffusion_tpu_torch.core.grids import (
         CELL,
         build_level_descriptors,
     )
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import tube_phantom
 
     log("== phase 3: kernels against their plain versions")
-    errs, timings = {}, {}
+    errs, timings, work = {}, {}, {}
     check_level("512^3", SHAPE, (1.0,) * 3, (CELL,) * 3, gen, errs, timings)
     check_level("256^3", (256,) * 3, (1.0,) * 3, (CELL,) * 3, gen, errs, timings)
     levels = build_level_descriptors((69, 77, 69))
     for i, lvl in enumerate(levels):
         nxt = levels[i + 1].centering if i + 1 < len(levels) else None
         check_level(f"{lvl.shape}", lvl.shape, lvl.spacing, nxt, gen, errs, timings)
-    return errs, timings
+    log("  VED kernels (B6-B9) on the tube phantom")
+    vol = tube_phantom(SHAPE, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ved_kernels("512^3", vol.to(dtype), (1.0,) * 3, errs, timings, work, True)
+    del vol
+    small = tube_phantom((37, 45, 51), gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_ved_kernels("(37, 45, 51)", small.to(dtype), (1.0, 0.9, 1.1), errs,
+                          timings, work, False)
+    # sigma = 2 at z spacing 0.25: r = 32 along z (and 16 on y and x)
+    check_ved_kernels("(40, 48, 56) r=32", tube_phantom((40, 48, 56), gen),
+                      (0.25, 0.5, 0.5), errs, timings, work, False)
+    torch.cuda.empty_cache()
+    return errs, timings, work
 
 
 def phase_reference(gen):
@@ -356,6 +616,125 @@ def phase_main(gen):
     return launches
 
 
+def phase_ved(gen):
+    """The VED main path at 512^3 float32 through VEDConfig.cuda(), then the
+    same call with use_kernels=False."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import VEDConfig, mad_diffusion, ved
+    from multigridanisotropicdiffusion_tpu_torch.models.ved import (
+        _auto_z_slab,
+        fused_vesselness_tensor,
+    )
+    from multigridanisotropicdiffusion_tpu_torch.ops import (
+        cuda_assemble,
+        cuda_conv,
+        cuda_smoothers,
+        cuda_transfer,
+        cuda_vesselness,
+    )
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import (
+        TUBES,
+        tube_centre,
+        tube_phantom,
+    )
+
+    log("== phase 6: VED main path, ved() at 512^3 float32 with VEDConfig.cuda()")
+    counters = {
+        "stencil_halfsweep": cuda_smoothers.halfsweep,
+        "stencil_residual": cuda_smoothers.cuda_residual,
+        "restrict3d": cuda_transfer.cuda_restrict,
+        "prolong3d": cuda_transfer.cuda_prolong,
+        "assemble_compressed": cuda_assemble.cuda_assemble_compressed_dca,
+        "conv_z": cuda_conv.conv_z,
+        "conv_yx": cuda_conv.conv_yx,
+        "fd_vesselness": cuda_vesselness.fd_vesselness,
+        "tensor_assembly": cuda_vesselness.tensor_assembly,
+    }
+    vol = tube_phantom(SHAPE, gen)
+    log(f"  phantom: {len(TUBES)} tubes, z slabs of {_auto_z_slab(SHAPE, 0)}")
+    outputs, launches = {}, None
+    for label, cfg in (("kernels", VEDConfig.cuda()),
+                       ("plain", VEDConfig.cuda(use_kernels=False))):
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = ved(vol, config=cfg, device="cuda")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in counters.items()}
+        if label == "kernels":
+            launches = counts
+            log(f"  launches in the first kernels call: {launches}")
+            missing = [k for k, n in counts.items() if n == 0]
+            if missing:
+                fail(f"kernels not launched on the VED main path: {missing}")
+        elif any(counts.values()):
+            fail(f"use_kernels=False launched kernels: {counts}")
+        d = res.diffusion
+        cycles = d.num_cycles.tolist()
+        finals = d.final_residual.tolist()
+        if tuple(res.output.shape) != SHAPE or not bool(torch.isfinite(res.output).all()):
+            fail(f"{label}: VED output not finite or of the wrong shape")
+        if not all(f <= 1e-6 for f in finals) or not all(c < 100 for c in cycles):
+            fail(f"{label}: a diffusion step did not converge: {cycles} {finals}")
+        # the thinnest tube, along z, at its centre
+        c = tube_centre(SHAPE)
+        v_c = float(res.vesselness[c])
+        t = res.tensor[(slice(None), *c)].double().cpu()
+        m = torch.stack([torch.stack([t[0], t[1], t[2]]), torch.stack([t[1], t[3], t[4]]),
+                         torch.stack([t[2], t[4], t[5]])])
+        axis = torch.linalg.eigh(m).eigenvectors[:, -1]
+        cos = abs(float(axis[0]))
+        log(f"  {label}: vesselness at tube centre {c}: {v_c:.4f}, principal "
+            f"axis |cos| to the tube {cos:.4f}")
+        if not (v_c > 0.1 and cos > 0.9):
+            fail(f"{label}: the tube is not enhanced along its axis")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        outputs[label] = res.output
+        del res, d, t
+        # warm: the pipeline and the five solves apart
+        kw = dict(z_slab=_auto_z_slab(SHAPE, cfg.pipeline_z_slab),
+                  hessian_mode=cfg.hessian_mode, use_kernels=cfg.use_kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resp, tensor = fused_vesselness_tensor(
+            vol, tuple(cfg.scales), (1.0,) * 3, cfg.alpha, cfg.beta, cfg.gamma,
+            cfg.epsilon, cfg.omega, cfg.sensitivity, **kw)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        del resp
+        t0 = time.perf_counter()
+        d = mad_diffusion(vol, tensor, config=cfg.mad_config(), device="cuda")
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        del d, tensor
+        torch.cuda.empty_cache()
+        log(f"  {label}: first call {first_s:.3f} s; warm pipeline {pipe_s:.3f} s, "
+            f"warm solves {solve_s:.3f} s; cycles per step {cycles}, final relres "
+            f"{[f'{f:.2e}' for f in finals]}; peak device memory {peak:.1f} GiB")
+    rel = ((outputs["kernels"] - outputs["plain"]).norm()
+           / outputs["plain"].norm()).item()
+    log(f"  kernels vs plain VED output: rel_l2={rel:.3e} (bound 1e-4)")
+    if not rel <= 1e-4:
+        fail("the VED kernel path and the plain path disagree")
+    return launches
+
+
+#: the solve kernels' work per 512^3 float32 call: planes moved (each read or
+#: written once, in units of the 512^3 volume) and float operations per fine
+#: cell, counted from their sources
+SOLVE_WORK = {
+    "stencil_halfsweep": (13, 29),
+    "stencil_residual": (13, 30),
+    "restrict3d": (1 + 1 / 8, 21),
+    "prolong3d": (1 / 8 + 1, 22),
+    "assemble_compressed": (16, 60),
+}
+
+
 def main():
     if len(sys.argv) > 1:
         fail("chip_smoke.py takes no arguments")
@@ -371,21 +750,41 @@ def main():
     log(f"TF32: torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    t_start = time.perf_counter()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs, timings = phase_kernels(gen)
+    errs, timings, work = phase_kernels(gen)
     phase_reference(gen)
     gen = torch.Generator(device="cuda").manual_seed(0)
     launches = phase_main(gen)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    launches.update({k: n for k, n in phase_ved(gen).items()
+                     if k not in launches})
+    log(f"phases 2-6 took {time.perf_counter() - t_start:.1f} s")
 
+    cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
     rows = []
     for name, (source, replaces, case) in KERNELS.items():
-        ms, plain_ms = timings[(case, "512^3")]
-        rows.append({
+        if name in SOLVE_WORK:
+            ms, plain_ms = timings[(case, "512^3")]
+            lib_ms = None  # no single PyTorch call computes these functions
+            planes, ops = SOLVE_WORK[name]
+            nbytes, nops = planes * cells * 4, ops * cells
+        else:
+            ms, plain_ms, lib_ms = timings[(case, "512^3")]
+            nbytes, nops = work[(case, "512^3")]
+        b_ms, b_by = bound_ms(nbytes, nops)
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[(case, "512^3")],
-            "ms": ms, "plain_ms": plain_ms, "shape": list(SHAPE), "dtype": "float32",
-        })
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "shape": list(SHAPE), "dtype": "float32",
+        }
+        if name == "fd_vesselness":
+            first = "fd_vesselness first f32"
+            row["first_ms"], row["first_plain_ms"], _ = timings[(first, "512^3")]
+            row["first_bound_ms"] = bound_ms(*work[(first, "512^3")])[0]
+        rows.append(row)
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

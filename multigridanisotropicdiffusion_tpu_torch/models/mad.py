@@ -256,6 +256,19 @@ class MADResult(NamedTuple):
     final_residual: torch.Tensor
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another (``device="cpu"``).  Never falls back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: the port's entry points run on "
+                "the card by default; pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype``, as the JAX package's comparisons of a
     ``dtype`` residual with a Python float see it."""
@@ -401,8 +414,9 @@ def mad_diffusion(
         reference's double precision) and float32 on CUDA.
       hierarchy: reuse a prebuilt :class:`Hierarchy` (same tensor, spacing
         and time step).
-      device: where to solve; defaults to ``image``'s device for a torch
-        tensor, else the CPU.
+      device: where to solve; ``None`` means the CUDA card, and raises
+        when there is none.  ``device="cpu"`` asks for the CPU (the plain
+        PyTorch versions of the kernels).
       mesh: distribution over devices is not ported yet (ROADMAP A11).
     """
     config = config or MADConfig()
@@ -410,9 +424,7 @@ def mad_diffusion(
         raise NotImplementedError(
             "distributed solves (mesh/halo) are not ported yet (ROADMAP A11)"
         )
-    if device is None:
-        device = image.device if isinstance(image, torch.Tensor) else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
     dtype = torch_dtype(dtype)

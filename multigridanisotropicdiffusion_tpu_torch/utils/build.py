@@ -54,6 +54,16 @@ SIGNATURES = {
     "mad_prolong3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
     # tensor, out, nz, ny, nx, w2 (3), wd (9), stream
     "mad_assemble_compressed": (_P, _P, _I, _I, _I) + (_D,) * 12 + (_STREAM,),
+    # in, out, z in, ny, nx, z out, host taps, taps, valid, stream
+    "mad_conv_z": (_P, _P, _I, _I, _I, _I, _P, _I, ctypes.c_int, _STREAM),
+    # in, out, nz, ny, nx, host taps y, taps y, host taps x, taps x, stream
+    "mad_conv_yx": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _STREAM),
+    # us, resp, h, nz, ny, nx, facs (6), 2 alpha^2, 2 beta^2, 2 gamma^2,
+    # first, stream
+    "mad_fd_vesselness": (_P, _P, _P, _I, _I, _I) + (_D,) * 9
+    + (ctypes.c_int, _STREAM),
+    # resp, h, out, voxels, 1/sensitivity, epsilon - 1, omega - epsilon, stream
+    "mad_tensor_assembly": (_P, _P, _P, _I, _D, _D, _D, _STREAM),
 }
 
 DTYPE_SUFFIX = {

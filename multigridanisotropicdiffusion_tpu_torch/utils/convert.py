@@ -8,11 +8,14 @@ cycles on exactly the operators the JAX package built.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..core.stencil import StencilOperator
 from ..models.mad import Hierarchy
+from ..models.ved import VEDConfig
 from ..ops.coarse import CoarseSolver
 from ..ops.compressed import CompressedDCAOperator
 
@@ -51,6 +54,27 @@ def solver_from_numpy(solver, dtype=None, device=None) -> CoarseSolver:
         inv_ok=bool(np.asarray(solver.inv_ok)),
         shape=tuple(solver.shape),
     )
+
+
+def ved_config_from_jax(cfg) -> VEDConfig:
+    """A JAX ``VEDConfig`` -> the port's, field by field (read by attribute):
+    ``use_pallas`` becomes ``use_kernels``; ``halo`` has no counterpart yet
+    (ROADMAP A11) and is dropped."""
+    kw = {}
+    for f in dataclasses.fields(VEDConfig):
+        src = "use_pallas" if f.name == "use_kernels" else f.name
+        value = getattr(cfg, src)
+        kw[f.name] = tuple(value) if f.name == "scales" else value
+    return VEDConfig(**kw)
+
+
+def best_from_numpy(resp, h_planes, dtype=None, device=None):
+    """The JAX package's running best ``(response, hessian plane tuple)`` ->
+    the ``(resp, (6, *shape) h)`` pair that ``ops.cuda_vesselness``
+    takes.  ``dtype`` sets the Hessian's storage dtype; the response keeps
+    its own."""
+    return (_t(resp, None, device).contiguous(),
+            tensor_from_numpy(h_planes, dtype, device))
 
 
 def hierarchy_from_numpy(hier, dtype=None, device=None) -> Hierarchy:

@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from multigridanisotropicdiffusion_tpu.core.grids import (
     build_level_descriptors as jlevels,
@@ -62,7 +63,8 @@ def test_slice_matches_jax_f64():
     tensor, image = _inputs()
     kw = dict(time_step=0.1, tolerance=1e-10, max_cycles=50)
     before = [f.launches for f in COUNTERS]
-    res = mad_diffusion(image, tensor, config=MADConfig.cuda(mixed_precision=False, **kw))
+    res = mad_diffusion(image, tensor, config=MADConfig.cuda(mixed_precision=False, **kw),
+                        device="cpu")
     assert [f.launches for f in COUNTERS] == before
     jres = jmad.mad_diffusion(image, tensor,
                               config=jmad.MADConfig.tpu(mixed_precision=False, **kw))
@@ -80,7 +82,7 @@ def test_slice_matches_jax_f64():
 def test_slice_bf16_defect_cycles_match_jax():
     tensor, image = _inputs(seed=1)
     kw = dict(time_step=0.1, tolerance=1e-8, max_cycles=50)
-    res = mad_diffusion(image, tensor, config=MADConfig.cuda(**kw))
+    res = mad_diffusion(image, tensor, config=MADConfig.cuda(**kw), device="cpu")
     jres = jmad.mad_diffusion(image, tensor, config=jmad.MADConfig.tpu(**kw))
     assert float(res.final_residual[0]) <= 1e-8
     assert float(jres.final_residual[0]) <= 1e-8
@@ -98,8 +100,9 @@ def test_jax_hierarchy_carried_across():
                                  operator_repr="compressed")
     hier = hierarchy_from_numpy(jax.device_get(jhier))
     got = mad_diffusion(image, tensor, spacing, MADConfig.cuda(False, **cfg),
-                        hierarchy=hier)
-    own = mad_diffusion(image, tensor, spacing, MADConfig.cuda(False, **cfg))
+                        hierarchy=hier, device="cpu")
+    own = mad_diffusion(image, tensor, spacing, MADConfig.cuda(False, **cfg),
+                        device="cpu")
     jres = jmad.mad_diffusion(image, tensor, spacing,
                               jmad.MADConfig.tpu(False, **cfg), hierarchy=jhier)
     assert int(got.num_cycles[0]) == int(jres.num_cycles[0])
@@ -115,7 +118,7 @@ def test_2d_cycle_counts_match_jax(smoother, cycle):
     tol = 1e-3 if cycle == SMOOTHER else 1e-10
     kw = dict(time_step=0.1 if cycle != SMOOTHER else 0.01, tolerance=tol,
               max_cycles=100, cycle=cycle, smoother=smoother)
-    res = mad_diffusion(image, tensor, config=MADConfig(**kw))
+    res = mad_diffusion(image, tensor, config=MADConfig(**kw), device="cpu")
     jres = jmad.mad_diffusion(image, tensor, config=jmad.MADConfig(**kw))
     n = int(res.num_cycles[0])
     assert n == int(jres.num_cycles[0]) and n < 100
@@ -128,7 +131,7 @@ def test_2d_cycle_counts_match_jax(smoother, cycle):
 def test_multiple_time_steps_and_trace_match_jax():
     tensor, image = _inputs(shape=(17, 16), seed=4)
     kw = dict(time_step=0.05, number_of_steps=3, tolerance=1e-10)
-    res = mad_diffusion(image, tensor, config=MADConfig(**kw))
+    res = mad_diffusion(image, tensor, config=MADConfig(**kw), device="cpu")
     jres = jmad.mad_diffusion(image, tensor, config=jmad.MADConfig(**kw))
     assert res.residual_history.shape == (3, 100)
     np.testing.assert_array_equal(res.num_cycles.numpy(), np.asarray(jres.num_cycles))
@@ -148,9 +151,18 @@ def test_lena_matches_golden():
     tensor = (np.full(shape, 50.0), np.zeros(shape), np.full(shape, 30.0))
     cfg = MADConfig(time_step=0.1, number_of_steps=1, iterations_per_grid=2,
                     tolerance=1e-10, max_cycles=100)
-    res = mad_diffusion(img, tensor, config=cfg)
+    res = mad_diffusion(img, tensor, config=cfg, device="cpu")
     assert float(res.final_residual[0]) <= 1e-10
     assert _rel_l2(res.output.numpy(), g["output"]) < 1e-8
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no ``device`` the solve runs on the CUDA card; without one it
+    raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tensor, image = _inputs()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mad_diffusion(image, tensor, config=MADConfig.cuda())
 
 
 def test_mesh_refused():
