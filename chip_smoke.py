@@ -46,8 +46,9 @@ took the same select decision (a flip at a near-tie with the incoming best
 is counted and must stay under 1e-6 of the voxels); B9's tensors where the
 top eigenvalue is not degenerate (gap >= 1e-4 of the matrix scale; there
 only the trace is compared, and the voxels where the two versions differ
-are counted and must stay under 1e-5 of the voxels).  The small volumes
-allow one such voxel.
+are counted and must stay under 1e-5 of the voxels); both counts come from
+``multigridanisotropicdiffusion_tpu_torch/utils/compare.py``, which the GPU
+tests share.  The small volumes allow one such voxel.
 """
 
 import json
@@ -294,49 +295,31 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
 
 def check_select(name, got, want, new_k, new_p, best_resp):
     """B8's select variant: the response everywhere, the Hessian planes where
-    both versions took the same decision.  A flip must sit at a near-tie
-    (both new responses within 1e-5 max|resp| of the incoming best) and
-    flips must stay under 1e-6 of the voxels."""
+    both versions took the same decision (``utils.compare.select_flips``)."""
+    from multigridanisotropicdiffusion_tpu_torch.utils.compare import select_flips
+
     err = check(f"{name} resp", got[0], want[0])
-    flip = (new_k > best_resp) != (new_p > best_resp)
-    n_flip = int(flip.sum())
-    scale = want[0].abs().max().item()
-    near = bool(((new_k - best_resp).abs()[flip] <= 1e-5 * scale).all()) and bool(
-        ((new_p - best_resp).abs()[flip] <= 1e-5 * scale).all())
-    log(f"  {name}: {n_flip} select flips at near-ties of {flip.numel()} voxels")
-    if not near or n_flip > max(1, 1e-6 * flip.numel()):
-        fail(f"{name}: {n_flip} select flips, near-ties only: {near}")
-    keep = ~flip
-    err = max(err, check(f"{name} h", got[1][:, keep], want[1][:, keep]))
-    return err
+    sel = select_flips(new_k, new_p, best_resp, want[0].abs().max().item())
+    log(f"  {name}: {sel.n_flip} select flips at near-ties of {sel.keep.numel()} voxels")
+    if not sel.ok:
+        fail(f"{name}: {sel.n_flip} select flips, near-ties only: {sel.near_ties_only}")
+    return max(err, check(f"{name} h", got[1][:, sel.keep], want[1][:, sel.keep]))
 
 
 def check_tensor(name, got, want, resp, h):
-    """B9: the tensor wherever the top eigenvalue is not degenerate (gap >=
-    1e-4 of the matrix scale).  At a degenerate voxel the eigenvector is
-    arbitrary: there only the trace is compared, and the voxels where the
-    two versions differ (beyond 1e-5 max|ref|) are counted and must stay
-    under 1e-5 of all.  bf16 storage makes exact ties common, so the count
-    is of the voxels that differ, not of the ties."""
-    from multigridanisotropicdiffusion_tpu_torch.ops.eigen3 import eigvalsh3
+    """B9: the tensor wherever the top eigenvalue is not degenerate; at a
+    degenerate voxel the trace, and a count of the voxels where the two
+    versions differ (``utils.compare.degenerate_tops``)."""
+    from multigridanisotropicdiffusion_tpu_torch.utils.compare import degenerate_tops
 
-    hm = h.to(resp.dtype)
-    w = eigvalsh3(hm)
-    degenerate = (w[2] - w[1]) < 1e-4 * hm.abs().amax(0)
-    del w, hm
-    n_deg = int(degenerate.sum())
-    scale = want.abs().max().item()
-    n_diff = int((degenerate & ((got - want).abs() > 1e-5 * scale).any(0)).sum())
-    trace_k = got[0] + got[3] + got[5]
-    trace_p = want[0] + want[3] + want[5]
-    trace_ok = bool(((trace_k - trace_p).abs()[degenerate]
-                     <= 1e-5 * trace_p.abs().max()).all())
-    log(f"  {name}: {n_deg} voxels with a degenerate top eigenvalue of "
-        f"{degenerate.numel()}, {n_diff} of them differ; traces agree there: "
-        f"{trace_ok}")
-    if n_diff > max(1, 1e-5 * degenerate.numel()) or not trace_ok:
-        fail(f"{name}: {n_diff} degenerate voxels differ, traces agree: {trace_ok}")
-    return check(name, got[:, ~degenerate], want[:, ~degenerate])
+    deg = degenerate_tops(got, want, resp, h, 1e-5)
+    log(f"  {name}: {deg.n_degenerate} voxels with a degenerate top eigenvalue of "
+        f"{deg.keep.numel()}, {deg.n_differ} of them differ; traces agree there: "
+        f"{deg.trace_ok}")
+    if not deg.ok:
+        fail(f"{name}: {deg.n_differ} degenerate voxels differ, traces agree: "
+             f"{deg.trace_ok}")
+    return check(name, got[:, deg.keep], want[:, deg.keep])
 
 
 def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):

@@ -63,7 +63,8 @@ class VEDConfig:
     smoother: str = "gauss_seidel"
     max_cycles: int = 100  # hardcoded in DiffusionStep (.hxx:396)
     coarse_operator: str = "dca"
-    #: Galerkin options: passed through once Galerkin levels are ported (A8)
+    #: Galerkin options: only the defaults until Galerkin levels are ported
+    #: (A8), which then pass them through
     galerkin_variant: str = "collapsed"
     galerkin_prune_tol: float = 0.0
     operator_repr: str = "stored"
@@ -89,6 +90,10 @@ class VEDConfig:
         if self.matrix_free:
             raise NotImplementedError(
                 "the matrix-free operator is not ported yet (ROADMAP A10)"
+            )
+        if (self.galerkin_variant, self.galerkin_prune_tol) != ("collapsed", 0.0):
+            raise NotImplementedError(
+                "Galerkin coarse operators are not ported yet (ROADMAP A8)"
             )
         if self.hessian_mode not in ("smooth_fd", "gaussian_derivative"):
             raise ValueError(f"unknown hessian mode: {self.hessian_mode!r}")

@@ -20,15 +20,17 @@ TUBES = (
     ((0.5, 0.75, 0.5), (1, 0, 1), 4.0),
     ((0.5, 0.5, 0.5), (1, 1, 1), 2.5),
 )
+#: the tubes' peak value, and the top of the uniform noise under them
+AMPLITUDE = 100.0
+NOISE = 10.0
 
 
-def tube_phantom(shape: Tuple[int, int, int], generator: torch.Generator,
-                 amplitude: float = 100.0, noise: float = 10.0) -> torch.Tensor:
+def tube_phantom(shape: Tuple[int, int, int], generator: torch.Generator) -> torch.Tensor:
     """float32 volume on the generator's device: the TUBES (the brightest
-    where they cross) at ``amplitude`` on uniform noise in [0, noise),
-    built in z chunks of 32 planes."""
+    where they cross) at AMPLITUDE on uniform noise in [0, NOISE), built in
+    z chunks of 32 planes."""
     device = generator.device
-    vol = torch.rand(shape, generator=generator, device=device) * noise
+    vol = torch.rand(shape, generator=generator, device=device) * NOISE
     y = torch.arange(shape[1], device=device, dtype=torch.float32)[:, None]
     x = torch.arange(shape[2], device=device, dtype=torch.float32)[None, :]
     for z0 in range(0, shape[0], 32):
@@ -43,11 +45,11 @@ def tube_phantom(shape: Tuple[int, int, int], generator: torch.Generator,
             along = rz * d[0] + ry * d[1] + rx * d[2]
             dist2 = rz * rz + ry * ry + rx * rx - along * along
             tubes = torch.maximum(
-                tubes, amplitude * torch.exp(-dist2 / (2 * radius ** 2)))
+                tubes, AMPLITUDE * torch.exp(-dist2 / (2 * radius ** 2)))
         vol[z0:z0 + len(z)] += tubes
     return vol
 
 
-def tube_centre(shape: Tuple[int, int, int], index: int = 0) -> Tuple[int, ...]:
-    """The voxel at the point of tube ``index``."""
-    return tuple(int(p * n) for p, n in zip(TUBES[index][0], shape))
+def tube_centre(shape: Tuple[int, int, int]) -> Tuple[int, ...]:
+    """The voxel at the point of the first, thinnest tube (along z)."""
+    return tuple(int(p * n) for p, n in zip(TUBES[0][0], shape))

@@ -1,25 +1,25 @@
-"""Where the time of one warm VED call goes, on one CUDA card.
+"""Where the time of one warm 512^3 VED call goes, on one CUDA card.
 
-    python -m multigridanisotropicdiffusion_tpu_torch.utils.profile_ved [--size 512]
+    python -m multigridanisotropicdiffusion_tpu_torch.utils.profile_ved
 
-Runs ``ved(vol, config=VEDConfig.cuda(), device="cuda")`` on the seeded tube
-phantom (``utils.phantom``) once to warm up, then once under
+Runs ``ved(vol, config=VEDConfig.cuda(), device="cuda")`` on the seeded
+512^3 tube phantom (``utils.phantom``) once to warm up, then once under
 ``torch.profiler``, and prints the card's name and power limit, the wall
 time, the device time (the sum of the kernels' times; one stream, so they
 do not overlap), the device's idle share, and the device time by kernel,
 grouped into the vesselness pipeline, the diffusion solves and the rest.
-``--trace PATH`` also writes the Chrome trace.  Needs a CUDA device.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
 import subprocess
 import sys
 import time
 
 import torch
 
+SHAPE = (512, 512, 512)
 #: kernel-name fragments of each group
 GROUPS = {
     "pipeline (B6-B9)": ("conv_z_kernel", "conv_yx_kernel", "fd_vesselness_kernel",
@@ -35,11 +35,7 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--size", type=int, default=512, help="edge of the cube")
-    ap.add_argument("--trace", default=None, help="write a Chrome trace here")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
@@ -51,8 +47,7 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False).stdout.strip())
-    shape = (args.size,) * 3
-    vol = tube_phantom(shape, torch.Generator(device="cuda").manual_seed(0))
+    vol = tube_phantom(SHAPE, torch.Generator(device="cuda").manual_seed(0))
     cfg = VEDConfig.cuda()
     ved(vol, config=cfg, device="cuda")
     torch.cuda.synchronize()
@@ -61,8 +56,6 @@ def main(argv=None) -> int:
         ved(vol, config=cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
 
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -71,7 +64,7 @@ def main(argv=None) -> int:
         print("the profiler saw no device time: time with CUDA events instead",
               file=sys.stderr)
         return 1
-    print(f"VED {shape} float32, VEDConfig.cuda(): wall {wall:.4f} s, device "
+    print(f"VED {SHAPE} float32, VEDConfig.cuda(): wall {wall:.4f} s, device "
           f"{device:.4f} s, device idle {max(0.0, 1 - device / wall):.1%}")
     grouped = {g: 0.0 for g in (*GROUPS, "other")}
     for e in kernels:

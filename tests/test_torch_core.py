@@ -106,8 +106,8 @@ def test_import_leaves_jax_out():
         "cuda_smoothers, cuda_transfer, cuda_assemble, cuda_conv, "
         "cuda_vesselness, eigen3, hessian\n"
         "from multigridanisotropicdiffusion_tpu_torch.models import ved\n"
-        "from multigridanisotropicdiffusion_tpu_torch.utils import build, convert, "
-        "phantom, profile_ved\n"
+        "from multigridanisotropicdiffusion_tpu_torch.utils import build, compare, "
+        "convert, phantom, profile_ved\n"
         "assert m.mad_diffusion and m.MADConfig and m.MADResult\n"
         "assert m.ved and m.VEDConfig and m.VEDResult\n"
         "bad = [k for k in set(sys.modules) - before\n"

@@ -149,6 +149,9 @@ def test_refusals(monkeypatch):
         ved(np.zeros((8, 8)), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         VEDConfig(matrix_free=True)
+    for kw in ({"galerkin_variant": "direct"}, {"galerkin_prune_tol": 1e-3}):
+        with pytest.raises(NotImplementedError, match="A8"):
+            VEDConfig(**kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ved(vol, config=VEDConfig.cuda())

@@ -151,3 +151,35 @@ def test_max_vesselness_over_scales_matches_jax():
     assert float(resp[7, 6, 7]) > 0.1
     _close(ved.generate_diffusion_tensor(resp, q, *TENSOR),
            np.stack(jved.generate_diffusion_tensor(jresp, jq, *TENSOR)), rel=1e-9)
+
+
+def test_compare_counts_flips_and_degenerate_tops():
+    """utils.compare, which the kernel checks on the card use: a flip at a
+    near-tie passes and is masked out, one far from the tie fails; a
+    degenerate top eigenvalue is masked out, and a tensor that differs in
+    its trace there fails."""
+    from multigridanisotropicdiffusion_tpu_torch.utils.compare import (
+        degenerate_tops,
+        select_flips,
+    )
+
+    best = torch.full((2, 3, 4), 0.5, dtype=torch.float64)
+    new_p = best.clone()
+    new_p[0, 1, 2] += 1e-7
+    sel = select_flips(best - 1e-7, new_p, best, 1.0)
+    assert sel.ok and sel.n_flip == 1 and not bool(sel.keep[0, 1, 2])
+    new_p[0, 1, 2] += 1e-3
+    assert not select_flips(best - 1e-7, new_p, best, 1.0).ok
+
+    h = torch.zeros((6, 2, 3, 4), dtype=torch.float64)
+    h[0], h[3], h[5] = -1.0, -2.0, -3.0  # top |value| gap of 1
+    h[:, 1, 2, 3] = torch.tensor([-1.0, 0.0, 0.0, -1.0, 0.0, -3.0])  # w_hi = w_mid
+    resp = torch.ones(h.shape[1:], dtype=torch.float64)
+    want = cuda_vesselness.tensor_assembly_plain(resp, h, ved._make_assemble_fn(*TENSOR))
+    got = want.clone()
+    got[[0, 3], 1, 2, 3] = want[[3, 0], 1, 2, 3]  # another frame, same trace
+    deg = degenerate_tops(got, want, resp, h, 1e-12)
+    assert deg.ok and deg.n_degenerate == 1 and deg.n_differ == 1
+    assert int(deg.keep.sum()) == resp.numel() - 1
+    got[0, 1, 2, 3] += 1.0
+    assert not degenerate_tops(got, want, resp, h, 1e-12).trace_ok
