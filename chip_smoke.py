@@ -29,13 +29,31 @@ Phases, one line or more each; any failure exits non-zero:
    all nine kernels' launch counts read from that run; every step must
    converge, the vesselness at a tube centre must exceed 0.1 with the
    tensor's principal axis along the tube, and ``use_kernels=False`` must
-   agree to 1e-4 relative L2.
+   agree to 1e-4 relative L2;
+7. Galerkin main path: ``mad_diffusion`` on phase 5's 512^3 inputs with
+   ``MADConfig.cuda(coarse_operator='galerkin')`` (collapsed levels, the
+   stored-operator kernel B12 from level 1 down), then
+   ``galerkin_variant='exact'`` (radius-2 levels; at 256^3 if the 512^3
+   setup's peak device memory passes 60 GB), each to 1e-6 in < 100 cycles,
+   each with ``use_kernels=False`` (within one cycle, 1e-4 relative L2);
+8. 2D main path: lena from ``tests/goldens/lena_gs_v.npz`` in float64
+   through the 2D kernel B13 (relative residual 1e-10, within 1e-8 relative
+   L2 of the golden), then a seeded 8192^2 float32 solve under
+   ``MADConfig.cuda()`` with the compressed DCA operator and with collapsed
+   Galerkin levels, each against ``use_kernels=False``.
+
+Phase 3 also holds B12 and B13 against their plain versions: B12 on the
+512^3 19-plane stored DCA operator, on level 1 (256^3) of the 512^3
+collapsed and exact Galerkin hierarchies and on every level of (69, 77, 69)
+vertex-centred Galerkin hierarchies; B13 on 8192^2 compressed and stored
+operators and on a (1531, 997) grid.
 
 The line before the last is ``{"kernels": [...]}`` (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
 function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
-at 512^3 float32); the last line is ``{"ok": true, "device": {...}}``.
+float32 at the shape in the row); the last line is ``{"ok": true,
+"device": {...}}``.
 
 Tolerances: float32 max |kernel - plain| <= 1e-5 max |plain| (the sums run
 in another order); bfloat16 |kernel - plain| <= one bf16 ulp of each plain
@@ -52,13 +70,19 @@ tests share.  The small volumes allow one such voxel.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SHAPE = (512, 512, 512)
+SHAPE_2D = (8192, 8192)
 DT = 0.1
+LENA = Path(__file__).resolve().parent / "tests" / "goldens" / "lena_gs_v.npz"
+#: the exact Galerkin variant falls back to 256^3 above this setup peak
+EXACT_PEAK_LIMIT_GIB = 60e9 / 2**30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PARAMS = (0.5, 0.5, 5.0)  # VEDConfig's alpha, beta, gamma
@@ -68,7 +92,8 @@ TENSOR_PARAMS = (0.01, 5.0, 10.0)  # epsilon, omega, sensitivity
 OPS_FD_VESSELNESS = 170
 OPS_TENSOR_ASSEMBLY = 265
 KERNELS = {
-    # name: (source, replaced Pallas kernel, phase-3 case reported)
+    # name: (source, replaced Pallas kernel, phase-3 case reported[, its
+    # tag when not the 512^3 level])
     "stencil_halfsweep": (
         "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_compressed.cu",
         "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
@@ -114,6 +139,37 @@ KERNELS = {
         "multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py:217",
         "tensor_assembly f32",
     ),
+    "stencil_stored_halfsweep": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_stored.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
+        "stored_halfsweep0 f32", "256^3 collapsed",
+    ),
+    "stencil_stored_residual": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_stored.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
+        "stored_residual f32", "256^3 collapsed",
+    ),
+    "stencil_2d_halfsweep": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_2d.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:537",
+        "2d_halfsweep0 f32", "8192^2 compressed",
+    ),
+    "stencil_2d_residual": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_2d.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:537",
+        "2d_residual f32", "8192^2 compressed",
+    ),
+}
+#: the kernels of the 3D compressed solve and of the VED call
+STENCIL_3D = ("stencil_halfsweep", "stencil_residual", "restrict3d", "prolong3d",
+              "assemble_compressed")
+VED_KERNELS = STENCIL_3D + ("conv_z", "conv_yx", "fd_vesselness", "tensor_assembly")
+#: B12/B13 cases reported beside the row's own (phase-3 tags)
+EXTRA_CASES = {
+    "stencil_stored_halfsweep": ("512^3 stored DCA", "256^3 exact"),
+    "stencil_stored_residual": ("512^3 stored DCA", "256^3 exact"),
+    "stencil_2d_halfsweep": ("8192^2 stored",),
+    "stencil_2d_residual": ("8192^2 stored",),
 }
 
 
@@ -191,12 +247,14 @@ def bound_ms(nbytes, ops):
 
 
 def bench_tensor(shape, gen):
-    """bench.py's construction: per voxel G G^T + 2 I with G normal."""
+    """bench.py's construction: per voxel G G^T + 2 I with G normal (D x D
+    for a D-dimensional grid), as a symfield-order stack."""
     import torch
 
-    rows = torch.randn((3, 3, *shape), generator=gen, device="cuda")
-    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-    t = torch.empty((6, *shape), device="cuda")
+    nd = len(shape)
+    rows = torch.randn((nd, nd, *shape), generator=gen, device="cuda")
+    pairs = [(i, j) for i in range(nd) for j in range(i, nd)]
+    t = torch.empty((len(pairs), *shape), device="cuda")
     for k, (i, j) in enumerate(pairs):
         torch.sum(rows[i] * rows[j], dim=0, out=t[k])
         if i == j:
@@ -290,6 +348,112 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
         del op, x, b
     del t, op32, x32, b32
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_runs):
+    """B12 (``module`` = ``ops.cuda_stencil_stored``) or B13
+    (``ops.cuda_stencil2d``) on one float32 operator: both half-sweeps and
+    the residual in float32 and bfloat16 against the plain versions.  With
+    ``timed_runs``: CUDA-event medians and each call's work, (K + 3) values
+    per cell and 2 K float operations."""
+    import torch
+
+    shape = op32.shape
+    planes = op32.planes if hasattr(op32, "planes") else op32.coeffs
+    k = planes.shape[0]
+    cells = math.prod(shape)
+    x32 = torch.randn(shape, generator=gen, device="cuda") * 10.0
+    b32 = torch.rand(shape, generator=gen, device="cuda") * 255.0
+    for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        op, x, b = op32.astype(dtype), x32.to(dtype), b32.to(dtype)
+        cases = [(f"{prefix}_halfsweep{c} {suffix}",
+                  lambda c=c: module.halfsweep(op, x, b, c),
+                  lambda c=c: module.halfsweep_plain(op, x, b, c)) for c in (0, 1)]
+        cases.append((f"{prefix}_residual {suffix}",
+                      lambda: module.cuda_residual(op, x, b),
+                      lambda: module.residual_plain(op, x, b)))
+        for name, kernel, plain in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            errs[(name, tag)] = check(f"{name} {tag} (K={k})", got, want)
+            del got, want
+            if timed_runs:
+                ms = timings[(name, tag)] = (median_ms(kernel, 10), median_ms(plain, 3))
+                work[(name, tag)] = ((k + 3) * cells * x.element_size(), 2 * k * cells,
+                                     shape, str(dtype).replace("torch.", ""))
+                log(f"    {name} {tag}: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms, "
+                    f"bound {bound_ms(*work[(name, tag)][:2])[0]:.3f} ms")
+        del op, x, b
+    del x32, b32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_stored_and_2d(gen, errs, timings, work):
+    """B12 and B13 on the operators of the Galerkin, stored and 2D paths."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import (
+        CELL,
+        build_level_descriptors,
+    )
+    from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator
+    from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
+    from multigridanisotropicdiffusion_tpu_torch.ops import (
+        compressed,
+        cuda_stencil2d,
+        cuda_stencil_stored,
+        dca,
+        galerkin,
+    )
+
+    log("  stored-operator kernel (B12)")
+    t = bench_tensor(SHAPE, gen)
+    stored = dca.assemble_dca(t, (1.0,) * 3, DT)
+    check_stencil("stored", "512^3 stored DCA", cuda_stencil_stored, stored, gen, errs,
+                  timings, work, True)
+    del stored
+    torch.cuda.empty_cache()
+    # level 1 of the 512^3 Galerkin hierarchies; collapsing the exact
+    # parabolic level gives the collapsed one bit for bit (the identity sits
+    # on the centre, which no other offset lumps onto, and negation is exact)
+    op0 = compressed.assemble_compressed_dca(t, (1.0,) * 3, DT)
+    del t
+    exact = galerkin.assemble_galerkin_parabolic(op0, (CELL,) * 3)
+    del op0
+    torch.cuda.empty_cache()
+    collapsed = galerkin.collapse_to_radius1(exact)
+    check_stencil("stored", "256^3 collapsed", cuda_stencil_stored, collapsed, gen, errs,
+                  timings, work, True)
+    del collapsed
+    check_stencil("stored", "256^3 exact", cuda_stencil_stored, exact, gen, errs,
+                  timings, work, True)
+    del exact
+    torch.cuda.empty_cache()
+    shape = (69, 77, 69)
+    t = bench_tensor(shape, gen)
+    for variant in ("collapsed", "exact"):
+        hier = build_hierarchy(t, build_level_descriptors(shape), DT, "galerkin",
+                               "compressed", galerkin_variant=variant)
+        for op in hier.operators:
+            if isinstance(op, StencilOperator):
+                check_stencil("stored", f"{op.shape} {variant}", cuda_stencil_stored, op,
+                              gen, errs, timings, work, False)
+    del t, hier
+    log("  2D kernel (B13)")
+    t = bench_tensor(SHAPE_2D, gen)
+    for form, assemble in (("compressed", compressed.assemble_compressed_dca),
+                           ("stored", dca.assemble_dca)):
+        check_stencil("2d", f"8192^2 {form}", cuda_stencil2d, assemble(t, (1.0, 1.0), DT),
+                      gen, errs, timings, work, True)
+    del t
+    t = bench_tensor((1531, 997), gen)
+    for form, assemble in (("compressed", compressed.assemble_compressed_dca),
+                           ("stored", dca.assemble_dca)):
+        check_stencil("2d", f"(1531, 997) {form}", cuda_stencil2d,
+                      assemble(t, (1.0, 0.7), DT), gen, errs, timings, work, False)
+    del t
     torch.cuda.empty_cache()
 
 
@@ -490,6 +654,7 @@ def phase_kernels(gen):
     check_ved_kernels("(40, 48, 56) r=32", tube_phantom((40, 48, 56), gen),
                       (0.25, 0.5, 0.5), errs, timings, work, False)
     torch.cuda.empty_cache()
+    check_stored_and_2d(gen, errs, timings, work)
     return errs, timings, work
 
 
@@ -523,79 +688,13 @@ def phase_reference(gen):
 def phase_main(gen):
     import torch
 
-    from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
-    from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
-    from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
-    from multigridanisotropicdiffusion_tpu_torch.ops import (
-        cuda_assemble,
-        cuda_smoothers,
-        cuda_transfer,
-    )
-
     log("== phase 5: main path, mad_diffusion at 512^3 to 1e-6")
-    counters = {
-        "stencil_halfsweep": cuda_smoothers.halfsweep,
-        "stencil_residual": cuda_smoothers.cuda_residual,
-        "restrict3d": cuda_transfer.cuda_restrict,
-        "prolong3d": cuda_transfer.cuda_prolong,
-        "assemble_compressed": cuda_assemble.cuda_assemble_compressed_dca,
-    }
     tensor = bench_tensor(SHAPE, gen)
     b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
-    levels = build_level_descriptors(SHAPE)
-    log(f"  levels: {[lvl.shape for lvl in levels]}")
-    kw = dict(time_step=DT, tolerance=1e-6, max_cycles=50)
-    outputs, launches = {}, None
-    for label, cfg in (("kernels", MADConfig.cuda(**kw)),
-                       ("plain", MADConfig.cuda(use_kernels=False, **kw))):
-        for f in counters.values():
-            f.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = mad_diffusion(b, tensor, config=cfg, device="cuda")
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        counts = {k: f.launches for k, f in counters.items()}
-        if label == "kernels":
-            launches = counts
-            missing = [k for k, n in counts.items() if n == 0]
-            if missing:
-                fail(f"kernels not launched on the main path: {missing}")
-        elif any(counts.values()):
-            fail(f"use_kernels=False launched kernels: {counts}")
-        n = int(res.num_cycles[0])
-        fin = float(res.final_residual[0])
-        hist = [f"{v:.3e}" for v in res.residual_history[0, :n].tolist()]
-        if tuple(res.output.shape) != SHAPE or not bool(torch.isfinite(res.output).all()):
-            fail(f"{label}: output not finite or of the wrong shape")
-        if not (fin <= 1e-6 and n < 50):
-            fail(f"{label}: did not converge (cycles {n}, relres {fin:.3e})")
-        outputs[label] = res.output
-        del res
-        # setup alone, then a warm solve on that hierarchy
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        hier = build_hierarchy(tensor, levels, DT, operator_repr="compressed",
-                               use_kernels=cfg.use_kernels)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res = mad_diffusion(b, tensor, config=cfg, device="cuda", hierarchy=hier)
-        torch.cuda.synchronize()
-        solve_s = time.perf_counter() - t0
-        del res, hier
-        torch.cuda.empty_cache()
-        log(f"  {label}: first call {first_s:.3f} s, setup {setup_s:.3f} s, "
-            f"warm solve {solve_s:.3f} s, cycles {n}, relres {fin:.3e}, "
-            f"history {hist}")
-        if label == "kernels":
-            log(f"  launches in the first kernels call: {launches}")
-        log(f"  peak device memory so far {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    rel = ((outputs["kernels"] - outputs["plain"]).norm()
-           / outputs["plain"].norm()).item()
-    log(f"  kernels vs plain output: rel_l2={rel:.3e} (bound 1e-4)")
-    if not rel <= 1e-4:
-        fail("the kernel path and the plain path disagree")
+    launches, _ = solve_pair("dca 512^3", b, tensor, dict(time_step=DT, tolerance=1e-6),
+                             STENCIL_3D, max_cycles=50)
+    del tensor, b
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -609,13 +708,6 @@ def phase_ved(gen):
         _auto_z_slab,
         fused_vesselness_tensor,
     )
-    from multigridanisotropicdiffusion_tpu_torch.ops import (
-        cuda_assemble,
-        cuda_conv,
-        cuda_smoothers,
-        cuda_transfer,
-        cuda_vesselness,
-    )
     from multigridanisotropicdiffusion_tpu_torch.utils.phantom import (
         TUBES,
         tube_centre,
@@ -623,17 +715,7 @@ def phase_ved(gen):
     )
 
     log("== phase 6: VED main path, ved() at 512^3 float32 with VEDConfig.cuda()")
-    counters = {
-        "stencil_halfsweep": cuda_smoothers.halfsweep,
-        "stencil_residual": cuda_smoothers.cuda_residual,
-        "restrict3d": cuda_transfer.cuda_restrict,
-        "prolong3d": cuda_transfer.cuda_prolong,
-        "assemble_compressed": cuda_assemble.cuda_assemble_compressed_dca,
-        "conv_z": cuda_conv.conv_z,
-        "conv_yx": cuda_conv.conv_yx,
-        "fd_vesselness": cuda_vesselness.fd_vesselness,
-        "tensor_assembly": cuda_vesselness.tensor_assembly,
-    }
+    counters = {k: f for k, f in all_counters().items() if k in VED_KERNELS}
     vol = tube_phantom(SHAPE, gen)
     log(f"  phantom: {len(TUBES)} tubes, z slabs of {_auto_z_slab(SHAPE, 0)}")
     outputs, launches = {}, None
@@ -706,6 +788,193 @@ def phase_ved(gen):
     return launches
 
 
+def all_counters():
+    """Every kernel wrapper's launch counter, by the kernels line's names."""
+    from multigridanisotropicdiffusion_tpu_torch.ops import (
+        cuda_assemble,
+        cuda_conv,
+        cuda_smoothers,
+        cuda_stencil2d,
+        cuda_stencil_stored,
+        cuda_transfer,
+        cuda_vesselness,
+    )
+
+    return {
+        "stencil_halfsweep": cuda_smoothers.halfsweep,
+        "stencil_residual": cuda_smoothers.cuda_residual,
+        "restrict3d": cuda_transfer.cuda_restrict,
+        "prolong3d": cuda_transfer.cuda_prolong,
+        "assemble_compressed": cuda_assemble.cuda_assemble_compressed_dca,
+        "conv_z": cuda_conv.conv_z,
+        "conv_yx": cuda_conv.conv_yx,
+        "fd_vesselness": cuda_vesselness.fd_vesselness,
+        "tensor_assembly": cuda_vesselness.tensor_assembly,
+        "stencil_stored_halfsweep": cuda_stencil_stored.halfsweep,
+        "stencil_stored_residual": cuda_stencil_stored.cuda_residual,
+        "stencil_2d_halfsweep": cuda_stencil2d.halfsweep,
+        "stencil_2d_residual": cuda_stencil2d.cuda_residual,
+    }
+
+
+def solve_pair(title, b, tensor, kw, expect, dtype=None, max_cycles=100):
+    """``mad_diffusion`` with ``MADConfig.cuda(**kw)`` through the kernels,
+    then with ``use_kernels=False``, on the same inputs: each call must
+    converge to ``kw['tolerance']`` in fewer than ``max_cycles`` cycles; the
+    kernel run must launch every kernel in ``expect`` and the plain run
+    none; the two must agree within one cycle and 1e-4 relative L2.  Each
+    also runs its setup alone and a warm solve on that hierarchy.  Returns
+    the kernel run's launch counts and a summary."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+    from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
+    from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
+
+    shape = tuple(b.shape)
+    counters = all_counters()
+    outputs, cycles, summary, launches = {}, {}, {"case": title}, None
+    for label in ("kernels", "plain"):
+        cfg = MADConfig.cuda(use_kernels=label == "kernels", max_cycles=max_cycles, **kw)
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = mad_diffusion(b, tensor, config=cfg, dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {k: f.launches for k, f in counters.items() if f.launches}
+        if label == "kernels":
+            launches = counts
+            missing = [k for k in expect if not counts.get(k)]
+            if missing:
+                fail(f"{title}: kernels not launched on its main path: {missing}")
+        elif counts:
+            fail(f"{title}: use_kernels=False launched kernels: {counts}")
+        n = int(res.num_cycles[0])
+        fin = float(res.final_residual[0])
+        hist = [f"{v:.3e}" for v in res.residual_history[0, :n].tolist()]
+        if tuple(res.output.shape) != shape or not bool(torch.isfinite(res.output).all()):
+            fail(f"{title} {label}: output not finite or of the wrong shape")
+        if not (fin <= cfg.tolerance and n < max_cycles):
+            fail(f"{title} {label}: did not converge (cycles {n}, relres {fin:.3e})")
+        outputs[label], cycles[label] = res.output, n
+        del res
+        # setup alone, then a warm solve on that hierarchy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        planes = as_sym_planes(tensor, shape, dtype=b.dtype if dtype is None else dtype,
+                               device="cuda")
+        hier = build_hierarchy(planes, build_level_descriptors(shape), cfg.time_step,
+                               cfg.coarse_operator, cfg.operator_repr, cfg.use_kernels,
+                               cfg.galerkin_variant)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated() / 2**30
+        planes_per_level = [len(getattr(op, "offsets", ())) or op.planes.shape[0]
+                            for op in hier.operators]
+        t0 = time.perf_counter()
+        res = mad_diffusion(b, tensor, config=cfg, dtype=dtype, device="cuda",
+                            hierarchy=hier)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        del res, hier, planes
+        torch.cuda.empty_cache()
+        summary[label] = dict(first_s=first_s, setup_s=setup_s, warm_solve_s=solve_s,
+                              cycles=n, relres=fin, peak_gib=peak,
+                              setup_peak_gib=setup_peak)
+        log(f"  {title} {label}: first call {first_s:.3f} s, setup {setup_s:.3f} s "
+            f"(peak {setup_peak:.1f} GiB), warm solve {solve_s:.3f} s, cycles {n}, "
+            f"relres {fin:.3e}, history {hist}, peak device memory {peak:.1f} GiB, "
+            f"planes per level {planes_per_level}")
+        if label == "kernels":
+            log(f"  {title}: launches in the first kernels call: {launches}")
+    rel = ((outputs["kernels"].double() - outputs["plain"].double()).norm()
+           / outputs["plain"].double().norm()).item()
+    summary["rel_l2_vs_plain"] = rel
+    log(f"  {title}: kernels vs plain output rel_l2={rel:.3e} (bound 1e-4), cycles "
+        f"{cycles['kernels']} vs {cycles['plain']}")
+    if not (rel <= 1e-4 and abs(cycles["kernels"] - cycles["plain"]) <= 1):
+        fail(f"{title}: the kernel path and the plain path disagree")
+    return launches, summary
+
+
+def phase_galerkin(gen):
+    """Galerkin levels at 512^3 on phase 5's inputs: collapsed (the default
+    variant), then exact."""
+    import torch
+
+    log("== phase 7: Galerkin main path, mad_diffusion at 512^3 to 1e-6 with "
+        "MADConfig.cuda(coarse_operator='galerkin')")
+    tensor = bench_tensor(SHAPE, gen)
+    b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
+    kw = dict(time_step=DT, tolerance=1e-6, coarse_operator="galerkin")
+    expect = STENCIL_3D + ("stencil_stored_halfsweep", "stencil_stored_residual")
+    launches, collapsed = solve_pair("galerkin collapsed 512^3", b, tensor, kw, expect)
+    _, exact = solve_pair("galerkin exact 512^3", b, tensor,
+                          dict(kw, galerkin_variant="exact"), expect)
+    summaries = [collapsed, exact]
+    if exact["kernels"]["setup_peak_gib"] > EXACT_PEAK_LIMIT_GIB:
+        log(f"  exact setup peak {exact['kernels']['setup_peak_gib']:.1f} GiB passes "
+            "60 GB: the exact variant again at 256^3")
+        del tensor, b
+        torch.cuda.empty_cache()
+        shape = (256,) * 3
+        tensor = bench_tensor(shape, gen)
+        b = torch.rand(shape, generator=gen, device="cuda") * 255.0
+        summaries.append(solve_pair("galerkin exact 256^3", b, tensor,
+                                    dict(kw, galerkin_variant="exact"), expect)[1])
+    del tensor, b
+    torch.cuda.empty_cache()
+    return launches, summaries
+
+
+def phase_2d(gen):
+    """lena in float64 against its golden, then 8192^2 float32 solves."""
+    import numpy as np
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
+
+    log("== phase 8: 2D main path: lena (float64) and 8192^2 (float32)")
+    counters = all_counters()
+    g = np.load(LENA)
+    img = torch.as_tensor(g["input"], dtype=torch.float64, device="cuda")
+    tensor = torch.stack([torch.full_like(img, 50.0), torch.zeros_like(img),
+                          torch.full_like(img, 30.0)])
+    for f in counters.values():
+        f.launches = 0
+    res = mad_diffusion(img, tensor, config=MADConfig.cuda(
+        mixed_precision=False, time_step=0.1, tolerance=1e-10),
+        dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in counters.items() if f.launches}
+    want = torch.as_tensor(g["output"], dtype=torch.float64, device="cuda")
+    rel = ((res.output - want).norm() / want.norm()).item()
+    n, fin = int(res.num_cycles[0]), float(res.final_residual[0])
+    log(f"  lena {tuple(img.shape)} float64: cycles {n}, relres {fin:.3e}, rel_l2 to "
+        f"the golden {rel:.3e} (bound 1e-8), launches {counts}")
+    if not (fin <= 1e-10 and rel <= 1e-8 and counts.get("stencil_2d_halfsweep")
+            and counts.get("stencil_2d_residual")):
+        fail("lena through the 2D kernel is off")
+    lena = dict(case="lena float64", cycles=n, relres=fin, rel_l2_golden=rel)
+    del res, img, tensor, want
+    tensor = bench_tensor(SHAPE_2D, gen)
+    b = torch.rand(SHAPE_2D, generator=gen, device="cuda") * 255.0
+    kw = dict(time_step=DT, tolerance=1e-6)
+    expect = ("stencil_2d_halfsweep", "stencil_2d_residual")
+    launches, dca_2d = solve_pair("dca 8192^2", b, tensor, kw, expect)
+    _, gal_2d = solve_pair("galerkin collapsed 8192^2", b, tensor,
+                           dict(kw, coarse_operator="galerkin"), expect)
+    del tensor, b
+    torch.cuda.empty_cache()
+    return launches, [lena, dca_2d, gal_2d]
+
+
 #: the solve kernels' work per 512^3 float32 call: planes moved (each read or
 #: written once, in units of the 512^3 volume) and float operations per fine
 #: cell, counted from their sources
@@ -743,31 +1012,50 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     launches.update({k: n for k, n in phase_ved(gen).items()
                      if k not in launches})
-    log(f"phases 2-6 took {time.perf_counter() - t_start:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gal_launches, solves = phase_galerkin(gen)
+    launches.update({k: n for k, n in gal_launches.items() if k.startswith("stencil_stored")})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    launches_2d, solves_2d = phase_2d(gen)
+    launches.update({k: n for k, n in launches_2d.items() if k.startswith("stencil_2d")})
+    log(f"phases 2-8 took {time.perf_counter() - t_start:.1f} s")
 
     cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
     rows = []
-    for name, (source, replaces, case) in KERNELS.items():
+    for name, (source, replaces, case, *tag) in KERNELS.items():
+        tag = tag[0] if tag else "512^3"
+        shape, dtype = list(SHAPE), "float32"
         if name in SOLVE_WORK:
-            ms, plain_ms = timings[(case, "512^3")]
+            ms, plain_ms = timings[(case, tag)]
             lib_ms = None  # no single PyTorch call computes these functions
             planes, ops = SOLVE_WORK[name]
             nbytes, nops = planes * cells * 4, ops * cells
+        elif name in EXTRA_CASES:
+            (ms, plain_ms), lib_ms = timings[(case, tag)], None
+            nbytes, nops, shape, dtype = work[(case, tag)]
         else:
-            ms, plain_ms, lib_ms = timings[(case, "512^3")]
-            nbytes, nops = work[(case, "512^3")]
+            ms, plain_ms, lib_ms = timings[(case, tag)]
+            nbytes, nops = work[(case, tag)]
         b_ms, b_by = bound_ms(nbytes, nops)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[(case, "512^3")],
+            "launches": launches[name], "max_abs_err": errs[(case, tag)],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "shape": list(SHAPE), "dtype": "float32",
+            "library_ms": lib_ms, "shape": list(shape), "dtype": dtype, "case": tag,
         }
         if name == "fd_vesselness":
             first = "fd_vesselness first f32"
             row["first_ms"], row["first_plain_ms"], _ = timings[(first, "512^3")]
             row["first_bound_ms"] = bound_ms(*work[(first, "512^3")])[0]
+        for extra in EXTRA_CASES.get(name, ()):
+            e_ms, e_plain = timings[(case, extra)]
+            e_bytes, e_ops, e_shape, _ = work[(case, extra)]
+            row.setdefault("other_cases", []).append({
+                "case": extra, "shape": list(e_shape), "ms": e_ms, "plain_ms": e_plain,
+                "bound_ms": bound_ms(e_bytes, e_ops)[0],
+                "max_abs_err": errs[(case, extra)]})
         rows.append(row)
+    print(json.dumps({"solves": solves + solves_2d}))
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

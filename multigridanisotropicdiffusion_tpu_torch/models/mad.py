@@ -11,17 +11,20 @@ Differences from the JAX package:
   tolerance loop is a host loop with one device-to-host sync per cycle (on
   the relative residual).  The precision window of the defect cycles is a
   Python ``if`` on that same host value.
-* ``MADConfig.use_kernels`` routes the solve through the four CUDA kernels:
-  the stencil half-sweep and residual (``ops.cuda_smoothers``), restriction
-  and prolongation (``ops.cuda_transfer``) and the compressed-operator
-  assembly (``ops.cuda_assemble``).  It stands for the JAX package's
-  ``use_pallas`` flag *and* its ``default_backend() == "tpu"`` gates on
-  assembly and transfers.  On a CPU tensor each kernel wrapper takes its
-  plain version; on a CUDA tensor it launches the kernel or raises.
+* ``MADConfig.use_kernels`` routes the solve through the CUDA kernels: the
+  stencil half-sweeps and residuals of every operator the JAX package sends
+  to Pallas (``ops.smoothers.has_kernel``: the compressed operator in 2D and
+  3D, ``ops.cuda_smoothers``/``ops.cuda_stencil2d``; 3D stored operators of
+  radius 1-2, ``ops.cuda_stencil_stored``; 2D stored radius 1), the 3D
+  restriction and prolongation (``ops.cuda_transfer``) and the 3D
+  compressed-operator assembly (``ops.cuda_assemble``).  It stands for the
+  JAX package's ``use_pallas`` flag *and* its ``default_backend() == "tpu"``
+  gates on assembly and transfers.  On a CPU tensor each kernel wrapper
+  takes its plain version; on a CUDA tensor it launches the kernel or
+  raises.
 * Not ported yet, and refused with ``NotImplementedError``: device meshes
-  and halo exchange (ROADMAP A11), Galerkin coarse operators (A8), the
-  matrix-free operator and the Chebyshev smoother (A10), and the 2D
-  compressed operator with kernels on CUDA (B13).
+  and halo exchange (ROADMAP A11), the matrix-free operator and the
+  Chebyshev smoother (A10).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..core.symfield import as_sym_planes
 from ..ops.coarse import CoarseSolver, build_coarse_solver, coarse_solve
 from ..ops.compressed import assemble_compressed_dca
 from ..ops.dca import assemble_dca
+from ..ops.galerkin import assemble_galerkin_parabolic, prune_stored_operator
 from ..ops.smoothers import DEFAULT_JACOBI_WEIGHT, make_residual, make_smoother
 from ..ops.transfer import prolong, restrict, restrict_tensor
 
@@ -72,8 +76,18 @@ class MADConfig:
     max_cycles: int = 100
     smoother: str = "gauss_seidel"
     jacobi_weight: float = DEFAULT_JACOBI_WEIGHT
-    #: only 'dca' is ported; 'galerkin' waits for ROADMAP A8.
+    #: 'dca' (re-discretize every level) or 'galerkin' (A_c = I - R (I -
+    #: A_f) P from the finer level, ops.galerkin).
     coarse_operator: str = DCA
+    #: Galerkin levels (coarse_operator='galerkin' only): 'collapsed' lumps
+    #: each level's coarsened dt*L onto radius 1 with exact row sums (27
+    #: planes in 3D), 'exact' keeps the full product (radius 2 under cell
+    #: centring, up to 117/125 planes).
+    galerkin_variant: str = "collapsed"
+    #: exact-Galerkin plane pruning: coarse-level planes below this
+    #: fraction of the diagonal's maximum are lumped onto their clipped
+    #: radius-1 offset (ops.galerkin.prune_stored_operator); 0 keeps all.
+    galerkin_prune_tol: float = 0.0
     #: 'stored' (19/9 planes) or 'compressed' (10/6 planes, ops.compressed);
     #: 'matrix_free' waits for ROADMAP A10.
     operator_repr: str = "stored"
@@ -96,12 +110,10 @@ class MADConfig:
     def __post_init__(self):
         if self.cycle not in (VCYCLE, FMG, SMOOTHER):
             raise ValueError(f"unknown cycle type: {self.cycle!r}")
-        if self.coarse_operator == GALERKIN:
-            raise NotImplementedError(
-                "Galerkin coarse operators are not ported yet (ROADMAP A8)"
-            )
-        if self.coarse_operator != DCA:
+        if self.coarse_operator not in (DCA, GALERKIN):
             raise ValueError(f"unknown coarse operator: {self.coarse_operator!r}")
+        if self.galerkin_variant not in ("exact", "collapsed"):
+            raise ValueError(f"unknown galerkin_variant: {self.galerkin_variant!r}")
         if self.operator_repr == "matrix_free":
             raise NotImplementedError(
                 "the matrix-free operator is not ported yet (ROADMAP A10)"
@@ -143,19 +155,19 @@ def build_hierarchy(
     coarse_operator: str = DCA,
     operator_repr: str = "stored",
     use_kernels: bool = False,
+    galerkin_variant: str = "collapsed",
 ) -> Hierarchy:
     """Assemble the per-level operators (the setup phase, once per tensor).
 
     DCA re-discretizes each level from the level-wise restricted tensor
-    (itkGridsHierarchy.hxx:110-201).  ``operator_repr`` picks the stored or
-    compressed form; the coarsest level is also assembled in stored form for
-    the dense LU.  With ``use_kernels``, 3D compressed assembly and the
-    tensor restriction go through their kernels.
+    (itkGridsHierarchy.hxx:110-201); Galerkin computes every coarser level
+    from the one above it as ``I - R (I - A_f) P`` (stored operators,
+    ``galerkin_variant`` as in :class:`MADConfig`).  ``operator_repr`` picks
+    the stored or compressed form of level 0 and of the DCA levels; the
+    coarsest level's stored form feeds the dense LU.  With ``use_kernels``,
+    3D compressed assembly and the 3D tensor restriction go through their
+    kernels.
     """
-    if coarse_operator != DCA:
-        raise NotImplementedError(
-            "Galerkin coarse operators are not ported yet (ROADMAP A8)"
-        )
     if operator_repr == "compressed":
         def make_op(t, lvl):
             if use_kernels and len(lvl.shape) == 3:
@@ -173,9 +185,20 @@ def build_hierarchy(
 
     ops = [make_op(tensor, levels[0])]
     t = tensor
-    for lvl in levels[1:]:
-        t = restrict_tensor(t, lvl.centering, use_kernels)
-        ops.append(make_op(t, lvl))
+    if coarse_operator == GALERKIN:
+        # the literal R A P of A = I - dt*L loses diagonal dominance down
+        # deep chains; the identity stays exact on every level
+        # (ops.galerkin.assemble_galerkin_parabolic)
+        collapse = galerkin_variant == "collapsed"
+        for lvl in levels[1:]:
+            ops.append(assemble_galerkin_parabolic(ops[-1], lvl.centering,
+                                                   collapse=collapse))
+    elif coarse_operator == DCA:
+        for lvl in levels[1:]:
+            t = restrict_tensor(t, lvl.centering, use_kernels)
+            ops.append(make_op(t, lvl))
+    else:
+        raise ValueError(f"unknown coarse operator: {coarse_operator!r}")
     if isinstance(ops[-1], StencilOperator):
         coarsest_stored = ops[-1]
     else:
@@ -430,13 +453,6 @@ def mad_diffusion(
     dtype = torch_dtype(dtype)
 
     shape = tuple(image.shape)
-    if config.use_kernels and device.type == "cuda" and (
-            len(shape) != 3 or config.operator_repr != "compressed"):
-        raise NotImplementedError(
-            "on CUDA, use_kernels runs the 3D compressed operator only: the 2D "
-            "kernels (ROADMAP B13) and the stored-operator kernels (B12) are "
-            "not ported yet; use use_kernels=False"
-        )
     levels = build_level_descriptors(shape, spacing)
     if isinstance(image, torch.Tensor):
         b = image.to(device=device, dtype=dtype)
@@ -448,7 +464,15 @@ def mad_diffusion(
         planes = as_sym_planes(tensor, shape, dtype=dtype, device=device)
         hierarchy = build_hierarchy(planes, levels, config.time_step,
                                     config.coarse_operator, config.operator_repr,
-                                    config.use_kernels)
+                                    config.use_kernels, config.galerkin_variant)
+        if (config.coarse_operator == GALERKIN and config.galerkin_variant == "exact"
+                and config.galerkin_prune_tol > 0):
+            # after the coarse LU, as in the JAX package: the coarsest
+            # level's solver keeps the unpruned operator
+            ops = (hierarchy.operators[0],) + tuple(
+                prune_stored_operator(op, config.galerkin_prune_tol)
+                for op in hierarchy.operators[1:])
+            hierarchy = Hierarchy(operators=ops, solver=hierarchy.solver)
 
     result = _solve_all_steps(hierarchy, levels, config, b)
     if config.verbose:

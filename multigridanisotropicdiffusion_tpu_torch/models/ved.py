@@ -63,8 +63,6 @@ class VEDConfig:
     smoother: str = "gauss_seidel"
     max_cycles: int = 100  # hardcoded in DiffusionStep (.hxx:396)
     coarse_operator: str = "dca"
-    #: Galerkin options: only the defaults until Galerkin levels are ported
-    #: (A8), which then pass them through
     galerkin_variant: str = "collapsed"
     galerkin_prune_tol: float = 0.0
     operator_repr: str = "stored"
@@ -91,12 +89,9 @@ class VEDConfig:
             raise NotImplementedError(
                 "the matrix-free operator is not ported yet (ROADMAP A10)"
             )
-        if (self.galerkin_variant, self.galerkin_prune_tol) != ("collapsed", 0.0):
-            raise NotImplementedError(
-                "Galerkin coarse operators are not ported yet (ROADMAP A8)"
-            )
         if self.hessian_mode not in ("smooth_fd", "gaussian_derivative"):
             raise ValueError(f"unknown hessian mode: {self.hessian_mode!r}")
+        self.mad_config()  # the solver options are MADConfig's to check
 
     @classmethod
     def cuda(cls, mixed_precision: bool = True, **kw) -> "VEDConfig":
@@ -119,6 +114,8 @@ class VEDConfig:
             max_cycles=self.max_cycles,
             smoother=self.smoother,
             coarse_operator=self.coarse_operator,
+            galerkin_variant=self.galerkin_variant,
+            galerkin_prune_tol=self.galerkin_prune_tol,
             operator_repr=self.operator_repr,
             use_kernels=self.use_kernels,
             defect_dtype=self.defect_dtype,

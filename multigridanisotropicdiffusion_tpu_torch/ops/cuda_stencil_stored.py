@@ -1,0 +1,124 @@
+"""The stencil kernel on 3D stored operators: red-black Gauss-Seidel
+half-sweeps and the residual (``csrc/stencil_stored.cu``).
+
+Counterpart of ``multigridanisotropicdiffusion_tpu.ops.pallas_smoothers``
+in its stored form (``_build_stencil_pass`` with ``offsets`` given): the
+19-plane stored DCA operator, collapsed Galerkin levels (27 planes) and
+exact Galerkin levels (radius 2, up to 125 planes).  The kernel takes the
+operator's ``(K, Z, Y, X)`` planes in their own order with the offset table
+and the centre index as launch arguments.  Each wrapper takes the plain
+PyTorch version for a CPU tensor; for a CUDA tensor it launches the kernel
+or raises.  Storage may be float32, bfloat16 or float64; 16-bit storage
+computes in float32 and rounds once at the store.
+
+``halfsweep.launches`` and ``cuda_residual.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core.stencil import StencilOperator, compute_dtype
+from ..utils.build import check_launch, kernel, require_cuda, stream_of
+from .smoothers import gs_halfsweep
+
+#: the kernel's offset table holds at most this many planes (radius 2 in 3D)
+MAX_OFFSETS = 125
+
+
+def halfsweep_plain(op: StencilOperator, x: torch.Tensor, b: torch.Tensor,
+                    color: int) -> torch.Tensor:
+    """Plain version of the half-sweep kernel (zero padding at the
+    borders)."""
+    return gs_halfsweep(op, x, b, color)
+
+
+def residual_plain(op, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the residual kernels: ``b - diag * x - offdiag(A) x``
+    in the compute dtype, rounded once."""
+    cd = compute_dtype(x.dtype)
+    xc = x.to(cd)
+    return (b.to(cd) - op.diag.to(cd) * xc - op.offdiag_apply(xc)).to(x.dtype)
+
+
+def rbgs_sweep_plain(op, x, b):
+    for color in (0, 1):
+        x = halfsweep_plain(op, x, b, color)
+    return x
+
+
+@functools.lru_cache(maxsize=256)
+def offset_table(offsets) -> np.ndarray:
+    """The offsets as the C-contiguous ``(K, ndim)`` int32 array the kernels
+    copy into their launch argument."""
+    table = np.ascontiguousarray(np.asarray(offsets, dtype=np.int32))
+    table.flags.writeable = False  # shared by every caller of the cache
+    return table
+
+
+def _check(name: str, op, x: torch.Tensor, b: torch.Tensor) -> None:
+    if not isinstance(op, StencilOperator) or op.ndim != 3 or not 1 <= op.radius <= 2:
+        raise ValueError(f"{name}: needs a 3D stored operator of radius 1 or 2, "
+                         f"got {op!r}")
+    if len(op.offsets) > MAX_OFFSETS:
+        raise ValueError(f"{name}: {len(op.offsets)} planes exceed {MAX_OFFSETS}")
+    require_cuda(name, op.coeffs, x, b)
+    if tuple(x.shape) != op.shape or tuple(b.shape) != op.shape:
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)} / b {tuple(b.shape)} != operator {op.shape}"
+        )
+    nz, ny, _ = op.shape
+    if nz > 65535 or (ny + 7) // 8 > 65535:
+        raise ValueError(f"{name}: grid of {op.shape} exceeds the launch limits")
+
+
+def _launch(entry: str, op, x, b, *color) -> torch.Tensor:
+    out = torch.empty_like(x)
+    table = offset_table(op.offsets)
+    err = kernel(entry, x.dtype)(
+        op.coeffs.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
+        *op.shape, table.ctypes.data, len(op.offsets), op.center_index,
+        *color, stream_of(x),
+    )
+    check_launch(err, entry)
+    return out
+
+
+def halfsweep(op: StencilOperator, x: torch.Tensor, b: torch.Tensor,
+              color: int) -> torch.Tensor:
+    """One half-sweep updating the cells of parity ``color`` (0 = red, even
+    index sum), out of place."""
+    if x.device.type == "cpu":
+        return halfsweep_plain(op, x, b, color)
+    _check("halfsweep", op, x, b)
+    out = _launch("mad_stencil_stored_halfsweep", op, x, b, int(color))
+    halfsweep.launches += 1
+    return out
+
+
+halfsweep.launches = 0
+
+
+def rbgs_sweep(op: StencilOperator, x: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """One red-black Gauss-Seidel sweep: red half-sweep, then black."""
+    for color in (0, 1):
+        x = halfsweep(op, x, b, color)
+    return x
+
+
+def cuda_residual(op: StencilOperator, x: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """Residual ``r = b - A x``."""
+    if x.device.type == "cpu":
+        return residual_plain(op, x, b)
+    _check("cuda_residual", op, x, b)
+    out = _launch("mad_stencil_stored_residual", op, x, b)
+    cuda_residual.launches += 1
+    return out
+
+
+cuda_residual.launches = 0

@@ -8,10 +8,13 @@ mixed offsets couple cells of the same colour, so an in-place update would
 read values already overwritten in the same half-sweep.  Red (even index
 sum) goes first.
 
-``make_smoother``/``make_residual`` with ``use_kernels`` send the 3D
-compressed operator to the stencil kernel's wrappers
-(:mod:`.cuda_smoothers`); for a CPU tensor those take the plain version.
-The Chebyshev smoother is not ported yet (ROADMAP A10).
+``make_smoother``/``make_residual`` with ``use_kernels`` send every
+operator that the JAX package sends to its Pallas kernels
+(:func:`has_kernel`) to a stencil kernel's wrappers: the 3D compressed
+operator to :mod:`.cuda_smoothers`, 3D stored operators to
+:mod:`.cuda_stencil_stored`, 2D operators to :mod:`.cuda_stencil2d`.  For a
+CPU tensor those take their plain versions; for a CUDA tensor they launch
+the kernel or raise.  The Chebyshev smoother is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from ..core.stencil import compute_dtype, residual
+from ..core.stencil import StencilOperator, compute_dtype, residual
 from .compressed import CompressedDCAOperator
 
 #: Default damping for weighted Jacobi (itkMultigridWeightedJacobiSmoother.hxx:189).
@@ -71,24 +74,29 @@ def rb_gauss_seidel_sweep(op, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def has_kernel(op) -> bool:
-    """Whether ``op`` has a stencil kernel: the 3D compressed operator."""
-    return isinstance(op, CompressedDCAOperator) and op.ndim == 3
-
-
-def refuse_without_kernel(op, x: torch.Tensor) -> None:
-    """With ``use_kernels`` a CUDA tensor must reach a kernel: raise for the
-    operators whose kernels are not ported yet."""
-    if not x.is_cuda:
-        return
+    """Whether ``op`` has a stencil kernel: the counterpart of the JAX
+    package's ``pallas_compatible(op)`` (``max_radius=2``).  The compressed
+    operator in 2D or 3D; a 3D stored operator of radius 1 or 2 (stored DCA
+    and collapsed Galerkin levels are radius 1, exact Galerkin levels reach
+    2); a 2D stored operator of radius 1."""
     if isinstance(op, CompressedDCAOperator):
-        raise NotImplementedError(
-            "the 2D compressed-operator stencil kernel is not ported yet "
-            "(ROADMAP B13); use use_kernels=False"
-        )
-    raise NotImplementedError(
-        f"{op!r} has no CUDA stencil kernel yet (stored operators: ROADMAP "
-        "B12/B13); use operator_repr='compressed' or use_kernels=False"
-    )
+        return op.ndim in (2, 3)
+    if not isinstance(op, StencilOperator):
+        return False
+    if op.ndim == 3:
+        return 1 <= op.radius <= 2
+    return op.ndim == 2 and op.radius == 1
+
+
+def _kernel_module(op):
+    """The wrapper module of ``op``'s stencil kernel (``has_kernel(op)``)."""
+    if op.ndim == 2:
+        from . import cuda_stencil2d as mod
+    elif isinstance(op, CompressedDCAOperator):
+        from . import cuda_smoothers as mod
+    else:
+        from . import cuda_stencil_stored as mod
+    return mod
 
 
 def make_smoother(kind: str, omega: float = DEFAULT_JACOBI_WEIGHT,
@@ -96,8 +104,11 @@ def make_smoother(kind: str, omega: float = DEFAULT_JACOBI_WEIGHT,
     """Return ``smooth(op, x, b) -> x'`` for the named smoother.
 
     ``kind``: 'gauss_seidel' (red-black) or 'weighted_jacobi'.
-    ``use_kernels``: 3D compressed-operator GS sweeps go through the stencil
-    kernel; on a CUDA tensor any other operator raises.
+    ``use_kernels``: the GS sweeps of every operator with a stencil kernel
+    (:func:`has_kernel`) go through it.  An operator the JAX package never
+    sends to Pallas (the radius-2 levels of a 2D exact Galerkin hierarchy)
+    runs the plain sweep on any device, as the JAX package runs it through
+    XLA: that is its path, not a fallback.
     """
     if kind in _GS:
         if not use_kernels:
@@ -105,10 +116,7 @@ def make_smoother(kind: str, omega: float = DEFAULT_JACOBI_WEIGHT,
 
         def sweep(op, x, b):
             if has_kernel(op):
-                from .cuda_smoothers import rbgs_sweep
-
-                return rbgs_sweep(op, x, b)
-            refuse_without_kernel(op, x)
+                return _kernel_module(op).rbgs_sweep(op, x, b)
             return rb_gauss_seidel_sweep(op, x, b)
 
         return sweep
@@ -120,17 +128,15 @@ def make_smoother(kind: str, omega: float = DEFAULT_JACOBI_WEIGHT,
 
 
 def make_residual(use_kernels: bool = False):
-    """Return ``resid(op, x, b) -> b - A x``; with ``use_kernels`` the 3D
-    compressed operator goes through the stencil kernel's residual."""
+    """Return ``resid(op, x, b) -> b - A x``; with ``use_kernels`` every
+    operator with a stencil kernel goes through its residual (the others as
+    in :func:`make_smoother`)."""
     if not use_kernels:
         return residual
 
     def resid(op, x, b):
         if has_kernel(op):
-            from .cuda_smoothers import cuda_residual
-
-            return cuda_residual(op, x, b)
-        refuse_without_kernel(op, x)
+            return _kernel_module(op).cuda_residual(op, x, b)
         return residual(op, x, b)
 
     return resid

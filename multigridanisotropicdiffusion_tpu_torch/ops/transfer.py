@@ -230,9 +230,12 @@ def prolong_plain(x: torch.Tensor, centering: Sequence[str]) -> torch.Tensor:
 def restrict(x: torch.Tensor, centering: Sequence[str],
              use_kernels: bool = False) -> torch.Tensor:
     """Full-weighting restriction of a fine-grid field.  With
-    ``use_kernels`` it goes through the transfer kernel's wrapper (which
-    takes the plain version for a CPU tensor)."""
-    if use_kernels:
+    ``use_kernels`` a 3D transfer goes through the transfer kernel's wrapper
+    (which takes the plain version for a CPU tensor).  2D transfers run the
+    plain version on any device, as the JAX package runs them in XLA (its
+    transfer kernels are 3D only).  The dimension is ``len(centering)``: a
+    ``(3, Y, X)`` stack of 2D tensor planes has three axes."""
+    if use_kernels and len(centering) == 3:
         from .cuda_transfer import cuda_restrict
 
         return cuda_restrict(x, tuple(centering))
@@ -243,7 +246,7 @@ def prolong(x: torch.Tensor, centering: Sequence[str],
             use_kernels: bool = False) -> torch.Tensor:
     """Linear prolongation (interpolation) of a coarse-grid field;
     ``use_kernels`` as in :func:`restrict`."""
-    if use_kernels:
+    if use_kernels and len(centering) == 3:
         from .cuda_transfer import cuda_prolong
 
         return cuda_prolong(x, tuple(centering))
@@ -254,5 +257,6 @@ def restrict_tensor(tensor: torch.Tensor, centering: Sequence[str],
                     use_kernels: bool = False) -> torch.Tensor:
     """Restrict every component of a ``(S, *shape)`` tensor stack (the
     reference restricts each coefficient image, itkGridsHierarchy.hxx:149-188);
-    with ``use_kernels`` all components go in one batched launch."""
+    with ``use_kernels`` all components of a 3D stack go in one batched
+    launch."""
     return restrict(tensor, centering, use_kernels)

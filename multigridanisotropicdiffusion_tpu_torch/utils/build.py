@@ -1,10 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by one ``nvcc`` call into a shared
-library with a plain C interface, loaded with :mod:`ctypes`:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with :mod:`ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o _build/libmadkernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o _build/<name>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libmadkernels-<hash>.so _build/*.o
 
 The build happens at the first launch, into ``_build/`` beside ``csrc/``,
 and again whenever a source's content changes (the library's name carries
@@ -35,8 +38,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -64,6 +68,22 @@ SIGNATURES = {
     + (ctypes.c_int, _STREAM),
     # resp, h, out, voxels, 1/sensitivity, epsilon - 1, omega - epsilon, stream
     "mad_tensor_assembly": (_P, _P, _P, _I, _D, _D, _D, _STREAM),
+    # planes, x, b, out, nz, ny, nx, host offsets (K, 3) int32, K, centre,
+    # color, stream
+    "mad_stencil_stored_halfsweep": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
+                                     ctypes.c_int, _STREAM),
+    "mad_stencil_stored_residual": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
+                                    _STREAM),
+    # planes, x, b, out, ny, nx, color, stream
+    "mad_stencil2d_compressed_halfsweep": (_P, _P, _P, _P, _I, _I, ctypes.c_int,
+                                           _STREAM),
+    "mad_stencil2d_compressed_residual": (_P, _P, _P, _P, _I, _I, _STREAM),
+    # planes, x, b, out, ny, nx, host offsets (K, 2) int32, K, centre, color,
+    # stream
+    "mad_stencil2d_stored_halfsweep": (_P, _P, _P, _P, _I, _I, _P, _I, _I,
+                                       ctypes.c_int, _STREAM),
+    "mad_stencil2d_stored_residual": (_P, _P, _P, _P, _I, _I, _P, _I, _I,
+                                      _STREAM),
 }
 
 DTYPE_SUFFIX = {
@@ -93,7 +113,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -105,23 +125,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless the current sources' build exists."""
+    """Compile the library unless the current sources' build exists: one
+    ``nvcc -c`` per source, run in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{source_hash()}.{os.getpid()}"
+    nvcc = find_nvcc()
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}-{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], False
+    for cmd, _, proc in jobs:
+        log.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+        failed = failed or proc.returncode != 0
+    objs = [obj for _, obj, _ in jobs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        failed = proc.returncode != 0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    text = "".join(log)
+    (BUILD_DIR / "build.log").write_text(text)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, out)
     return out
 

@@ -48,7 +48,7 @@ def test_every_storage_type_is_instantiated():
 
 
 def test_library_name_follows_sources_and_flags(monkeypatch):
-    assert [p.suffix for p in build.sources()].count(".cu") == 5
+    assert [p.suffix for p in build.sources()].count(".cu") == 7
     name = build.library_path().name
     assert name == build.library_path().name
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))

@@ -96,9 +96,9 @@ def test_kernel_wrappers_refuse_bad_input(device):
         cuda_smoothers.halfsweep(op, x.transpose(0, 2), x, 0)
     with pytest.raises(ValueError):
         cuda_transfer.cuda_restrict(torch.ones((8, 8), device=device), ("c", "c"))
-    with pytest.raises(NotImplementedError, match="B13"):
+    with pytest.raises(NotImplementedError, match="A11"):
         mad_diffusion(torch.ones((16, 16), device=device), torch.ones((3, 16, 16)),
-                      config=MADConfig.cuda(), device=device)
+                      config=MADConfig.cuda(), device=device, mesh=object())
 
 
 @pytest.mark.parametrize("mixed_precision", [False, True])

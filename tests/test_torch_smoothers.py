@@ -168,7 +168,7 @@ def test_coarse_solver_matches_jax(force_fallback):
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: MADConfig(coarse_operator="galerkin"),
+        lambda: MADConfig(coarse_operator="galerkin", operator_repr="matrix_free"),
         lambda: MADConfig(operator_repr="matrix_free"),
         lambda: MADConfig(smoother="chebyshev"),
         lambda: smoothers.make_smoother("chebyshev"),
