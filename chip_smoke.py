@@ -40,15 +40,31 @@ Phases, one line or more each; any failure exits non-zero:
    through the 2D kernel B13 (relative residual 1e-10, within 1e-8 relative
    L2 of the golden), then a seeded 8192^2 float32 solve under
    ``MADConfig.cuda()`` with the compressed DCA operator and with collapsed
-   Galerkin levels, each against ``use_kernels=False``.
+   Galerkin levels, each against ``use_kernels=False``;
+9. reference-faithful VED: phase 6's 512^3 phantom through
+   ``VEDMultigridImageFilter(device="cuda").set_config(VEDConfig.cuda(
+   hessian_mode="gaussian_derivative"))`` (B6 and B10 in every Hessian), with
+   the conv_z / conv_y / conv_x launch counts read from that run (120 / 240 /
+   240), the phase-6 convergence and tube checks, and the same filter with
+   ``use_kernels=False`` within 1e-4 relative L2; warm pipeline and warm
+   solve seconds apart; then ``hessian(vol, 2.0, mode="smooth_fd",
+   use_kernels=True)``, which must launch B11 once and match its plain path;
+10. the modules without kernels on the card, at 256^3 on phase 5's
+   construction: ``MADConfig.cuda(operator_repr="matrix_free")``,
+   ``MADConfig.cuda(smoother="chebyshev")`` and ``mad_diffusion_verbose``
+   with ``MADConfig.cuda(mixed_precision=False)``, each to 1e-6 and within
+   1e-4 relative L2 of the compressed DCA solve; the trace's line count.
 
-Phase 3 also holds B12 and B13 against their plain versions: B12 on the
+Phase 3 also holds B10 (``conv_y``, ``conv_x``: 512^3 float32 and bfloat16,
+(37, 45, 51), and r = 64 on (12, 150, 150)) and B11 (``fd_hessian``: the
+valid-z smoothed 512^3 field of 514 planes, float32 and bfloat16, and
+(39, 45, 51)) against their plain versions, and B12 and B13: B12 on the
 512^3 19-plane stored DCA operator, on level 1 (256^3) of the 512^3
 collapsed and exact Galerkin hierarchies and on every level of (69, 77, 69)
 vertex-centred Galerkin hierarchies; B13 on 8192^2 compressed and stored
 operators and on a (1531, 997) grid.
 
-The line before the last is ``{"kernels": [...]}`` (name, route, source, the
+The line before the last is ``{"kernels": [...]}``, 16 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
 function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
@@ -91,6 +107,9 @@ TENSOR_PARAMS = (0.01, 5.0, 10.0)  # epsilon, omega, sensitivity
 #: (every add, multiply, compare-select and math-library call as one)
 OPS_FD_VESSELNESS = 170
 OPS_TENSOR_ASSEMBLY = 265
+OPS_FD_HESSIAN = 24
+#: phase 9's expected B6/B10 launches: 8 z slabs x 5 scales x (3 z, 6 y, 6 x)
+GD_LAUNCHES = {"conv_z": 120, "conv_y": 240, "conv_x": 240}
 KERNELS = {
     # name: (source, replaced Pallas kernel, phase-3 case reported[, its
     # tag when not the 512^3 level])
@@ -159,11 +178,28 @@ KERNELS = {
         "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:537",
         "2d_residual f32", "8192^2 compressed",
     ),
+    "conv_y": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/conv.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_conv.py:220",
+        "conv_y f32",
+    ),
+    "conv_x": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/conv.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_conv.py:309",
+        "conv_x f32",
+    ),
+    "fd_hessian": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/vesselness.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_conv.py:581",
+        "fd_hessian f32",
+    ),
 }
 #: the kernels of the 3D compressed solve and of the VED call
 STENCIL_3D = ("stencil_halfsweep", "stencil_residual", "restrict3d", "prolong3d",
               "assemble_compressed")
 VED_KERNELS = STENCIL_3D + ("conv_z", "conv_yx", "fd_vesselness", "tensor_assembly")
+#: the kernels of the gaussian_derivative VED call
+GD_KERNELS = STENCIL_3D + ("conv_z", "conv_y", "conv_x")
 #: B12/B13 cases reported beside the row's own (phase-3 tags)
 EXTRA_CASES = {
     "stencil_stored_halfsweep": ("512^3 stored DCA", "256^3 exact"),
@@ -486,8 +522,34 @@ def check_tensor(name, got, want, resp, h):
     return check(name, got[:, deg.keep], want[:, deg.keep])
 
 
+def recorder(tag, u, timings, timed_runs):
+    """``(suffix, key, record)`` for the cases of one volume ``u``: its
+    dtype's suffix; ``key(name)`` is
+    ``("<kernel> <dtype>", tag)``, as the solve kernels' cases;
+    ``record(name, kernel, plain, library=None, setup=None)`` stores the
+    CUDA-event medians of the three (``setup`` runs before each launch,
+    outside the timed window) when ``timed_runs``."""
+    import torch
+
+    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[u.dtype]
+
+    def key(name):
+        return (f"{name} {suffix}", tag)
+
+    def record(name, kernel, plain, library=None, setup=None):
+        if not timed_runs:
+            return
+        ms = median_ms(kernel, 10, setup)
+        plain_ms = median_ms(plain, 3, setup)
+        lib_ms = median_ms(library, 10) if library else None
+        timings[key(name)] = (ms, plain_ms, lib_ms)
+        log(f"    {name} {suffix} {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+
+    return suffix, key, record
+
+
 def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
-    # keys: ("<kernel> <dtype>", tag), as the solve kernels' cases
     """B6-B9 on one volume ``u`` (storage dtype): B6 over the sigma = 2 halo,
     B7 on its output, B8 first (sigma = 1.245) and select (sigma = 2), B9 on
     the winner.  With ``timed_runs``: CUDA-event medians, the library
@@ -520,20 +582,7 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     gz, gy, gx = (gaussian_kernels_1d(s2, h)[0] for h in spacing)
     f1, f2 = fd_factors(s1, spacing), fd_factors(s2, spacing)
     item = u.element_size()
-    suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[u.dtype]
-
-    def key(name):
-        return (f"{name} {suffix}", tag)
-
-    def record(name, kernel, plain, library=None, setup=None):
-        if not timed_runs:
-            return
-        ms = median_ms(kernel, 10, setup)
-        plain_ms = median_ms(plain, 3, setup)
-        lib_ms = median_ms(library, 10) if library else None
-        timings[key(name)] = (ms, plain_ms, lib_ms)
-        log(f"    {name} {suffix} {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}")
+    suffix, key, record = recorder(tag, u, timings, timed_runs)
 
     # B6, valid mode over the halo: (Z + 2r + 2) -> (Z + 2) planes
     errs[key("conv_z")] = check(f"conv_z {suffix} {tag}", cuda_conv.conv_z(u_pad, gz, True),
@@ -624,6 +673,52 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     torch.cuda.empty_cache()
 
 
+def check_axis_kernels(tag, u, spacing, errs, timings, work, timed_runs, sigma=2.0):
+    """B10 and B11 on one volume ``u`` (storage dtype): ``conv_y`` and
+    ``conv_x`` with sigma's second-derivative taps (the gaussian_derivative
+    Hessian's passes, each rounded at its store), and ``fd_hessian`` on the
+    valid-z smoothed field (Z + 2 planes).  Library yardstick of B10:
+    replicate-pad, then ``F.conv3d`` with a one-axis kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_conv, cuda_vesselness
+    from multigridanisotropicdiffusion_tpu_torch.ops.hessian import (
+        fd_factors,
+        gaussian_kernels_1d,
+        smoothed_field_valid_z,
+    )
+
+    item = u.element_size()
+    suffix, key, record = recorder(tag, u, timings, timed_runs)
+    u5 = u[None, None]
+    for axis, name in ((1, "conv_y"), (2, "conv_x")):
+        taps = gaussian_kernels_1d(sigma, spacing[axis])[2]
+        r = (len(taps) - 1) // 2
+        kernel = getattr(cuda_conv, name)
+        plain = getattr(cuda_conv, f"{name}_plain")
+        errs[key(name)] = check(f"{name} {suffix} {tag} (r={r})",
+                                kernel(u, taps), plain(u, taps))
+        w = torch.as_tensor(taps, dtype=u.dtype, device="cuda")
+        w = w.reshape(1, 1, 1, -1, 1) if axis == 1 else w.reshape(1, 1, 1, 1, -1)
+        pad = (0, 0, r, r, 0, 0) if axis == 1 else (r, r, 0, 0, 0, 0)
+        record(name, lambda: kernel(u, taps), lambda: plain(u, taps),
+               lambda: F.conv3d(F.pad(u5, pad, mode="replicate"), w))
+        work[key(name)] = (2 * u.numel() * item, 2 * int(np.count_nonzero(taps)) * u.numel())
+    us = smoothed_field_valid_z(u, sigma, spacing, use_kernels=True)
+    facs = fd_factors(sigma, spacing)
+    errs[key("fd_hessian")] = check(
+        f"fd_hessian {suffix} {tag} (input {tuple(us.shape)})",
+        cuda_vesselness.fd_hessian(us, facs), cuda_vesselness.fd_hessian_plain(us, facs))
+    record("fd_hessian", lambda: cuda_vesselness.fd_hessian(us, facs),
+           lambda: cuda_vesselness.fd_hessian_plain(us, facs))
+    work[key("fd_hessian")] = ((us.numel() + 6 * u.numel()) * item, OPS_FD_HESSIAN * u.numel())
+    del us, u5
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(gen):
     import torch
 
@@ -645,11 +740,19 @@ def phase_kernels(gen):
     vol = tube_phantom(SHAPE, gen)
     for dtype in (torch.float32, torch.bfloat16):
         check_ved_kernels("512^3", vol.to(dtype), (1.0,) * 3, errs, timings, work, True)
+    log("  gaussian_derivative and smooth_fd Hessian kernels (B10, B11)")
+    for dtype in (torch.float32, torch.bfloat16):
+        check_axis_kernels("512^3", vol.to(dtype), (1.0,) * 3, errs, timings, work, True)
     del vol
     small = tube_phantom((37, 45, 51), gen)
     for dtype in (torch.float32, torch.bfloat16):
         check_ved_kernels("(37, 45, 51)", small.to(dtype), (1.0, 0.9, 1.1), errs,
                           timings, work, False)
+        check_axis_kernels("(37, 45, 51)", small.to(dtype), (1.0, 0.9, 1.1), errs,
+                           timings, work, False)
+    # sigma = 16: r = 64, the cap, on every axis
+    check_axis_kernels("(12, 150, 150) r=64", tube_phantom((12, 150, 150), gen),
+                       (1.0,) * 3, errs, timings, work, False, sigma=16.0)
     # sigma = 2 at z spacing 0.25: r = 32 along z (and 16 on y and x)
     check_ved_kernels("(40, 48, 56) r=32", tube_phantom((40, 48, 56), gen),
                       (0.25, 0.5, 0.5), errs, timings, work, False)
@@ -698,35 +801,35 @@ def phase_main(gen):
     return launches
 
 
-def phase_ved(gen):
-    """The VED main path at 512^3 float32 through VEDConfig.cuda(), then the
-    same call with use_kernels=False."""
+def ved_pair(vol, cfg, run, expect, exact=None):
+    """``run(cfg)``, a VED call on the 512^3 phantom ``vol`` through the
+    kernels, then ``run`` with ``use_kernels=False``: every step must
+    converge, the vesselness at a tube centre must exceed 0.1 with the
+    tensor's principal axis along the tube, the kernel run must launch every
+    kernel in ``expect`` (``exact[name]`` times where given) and the plain
+    run none, and the two must agree within 1e-4 relative L2.  Each also
+    runs warm, the pipeline and the solves apart.  Returns the kernel run's
+    launch counts."""
+    import dataclasses
+
     import torch
 
-    from multigridanisotropicdiffusion_tpu_torch import VEDConfig, mad_diffusion, ved
+    from multigridanisotropicdiffusion_tpu_torch import mad_diffusion
     from multigridanisotropicdiffusion_tpu_torch.models.ved import (
         _auto_z_slab,
         fused_vesselness_tensor,
     )
-    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import (
-        TUBES,
-        tube_centre,
-        tube_phantom,
-    )
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import tube_centre
 
-    log("== phase 6: VED main path, ved() at 512^3 float32 with VEDConfig.cuda()")
-    counters = {k: f for k, f in all_counters().items() if k in VED_KERNELS}
-    vol = tube_phantom(SHAPE, gen)
-    log(f"  phantom: {len(TUBES)} tubes, z slabs of {_auto_z_slab(SHAPE, 0)}")
+    counters = {k: f for k, f in all_counters().items() if k in expect}
     outputs, launches = {}, None
-    for label, cfg in (("kernels", VEDConfig.cuda()),
-                       ("plain", VEDConfig.cuda(use_kernels=False))):
+    for label, c in (("kernels", cfg), ("plain", dataclasses.replace(cfg, use_kernels=False))):
         for f in counters.values():
             f.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = ved(vol, config=cfg, device="cuda")
+        res = run(c)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = {k: f.launches for k, f in counters.items()}
@@ -735,7 +838,10 @@ def phase_ved(gen):
             log(f"  launches in the first kernels call: {launches}")
             missing = [k for k, n in counts.items() if n == 0]
             if missing:
-                fail(f"kernels not launched on the VED main path: {missing}")
+                fail(f"kernels not launched on this VED path: {missing}")
+            wrong = {k: n for k, n in (exact or {}).items() if counts[k] != n}
+            if wrong:
+                fail(f"launch counts {wrong}, expected {exact}")
         elif any(counts.values()):
             fail(f"use_kernels=False launched kernels: {counts}")
         d = res.diffusion
@@ -743,36 +849,36 @@ def phase_ved(gen):
         finals = d.final_residual.tolist()
         if tuple(res.output.shape) != SHAPE or not bool(torch.isfinite(res.output).all()):
             fail(f"{label}: VED output not finite or of the wrong shape")
-        if not all(f <= 1e-6 for f in finals) or not all(c < 100 for c in cycles):
+        if not all(f <= 1e-6 for f in finals) or not all(n < 100 for n in cycles):
             fail(f"{label}: a diffusion step did not converge: {cycles} {finals}")
         # the thinnest tube, along z, at its centre
-        c = tube_centre(SHAPE)
-        v_c = float(res.vesselness[c])
-        t = res.tensor[(slice(None), *c)].double().cpu()
+        centre = tube_centre(SHAPE)
+        v_c = float(res.vesselness[centre])
+        t = res.tensor[(slice(None), *centre)].double().cpu()
         m = torch.stack([torch.stack([t[0], t[1], t[2]]), torch.stack([t[1], t[3], t[4]]),
                          torch.stack([t[2], t[4], t[5]])])
         axis = torch.linalg.eigh(m).eigenvectors[:, -1]
         cos = abs(float(axis[0]))
-        log(f"  {label}: vesselness at tube centre {c}: {v_c:.4f}, principal "
+        log(f"  {label}: vesselness at tube centre {centre}: {v_c:.4f}, principal "
             f"axis |cos| to the tube {cos:.4f}")
         if not (v_c > 0.1 and cos > 0.9):
             fail(f"{label}: the tube is not enhanced along its axis")
         peak = torch.cuda.max_memory_allocated() / 2**30
         outputs[label] = res.output
         del res, d, t
-        # warm: the pipeline and the five solves apart
-        kw = dict(z_slab=_auto_z_slab(SHAPE, cfg.pipeline_z_slab),
-                  hessian_mode=cfg.hessian_mode, use_kernels=cfg.use_kernels)
+        # warm: the pipeline and the diffusion solves apart
+        kw = dict(z_slab=_auto_z_slab(SHAPE, c.pipeline_z_slab),
+                  hessian_mode=c.hessian_mode, use_kernels=c.use_kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         resp, tensor = fused_vesselness_tensor(
-            vol, tuple(cfg.scales), (1.0,) * 3, cfg.alpha, cfg.beta, cfg.gamma,
-            cfg.epsilon, cfg.omega, cfg.sensitivity, **kw)
+            vol, tuple(c.scales), (1.0,) * 3, c.alpha, c.beta, c.gamma,
+            c.epsilon, c.omega, c.sensitivity, **kw)
         torch.cuda.synchronize()
         pipe_s = time.perf_counter() - t0
         del resp
         t0 = time.perf_counter()
-        d = mad_diffusion(vol, tensor, config=cfg.mad_config(), device="cuda")
+        d = mad_diffusion(vol, tensor, config=c.mad_config(), device="cuda")
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
         del d, tensor
@@ -786,6 +892,109 @@ def phase_ved(gen):
     if not rel <= 1e-4:
         fail("the VED kernel path and the plain path disagree")
     return launches
+
+
+def phase_ved(gen):
+    """The VED main path at 512^3 float32 through VEDConfig.cuda(), then the
+    same call with use_kernels=False."""
+    from multigridanisotropicdiffusion_tpu_torch import VEDConfig, ved
+    from multigridanisotropicdiffusion_tpu_torch.models.ved import _auto_z_slab
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import TUBES, tube_phantom
+
+    log("== phase 6: VED main path, ved() at 512^3 float32 with VEDConfig.cuda()")
+    vol = tube_phantom(SHAPE, gen)
+    log(f"  phantom: {len(TUBES)} tubes, z slabs of {_auto_z_slab(SHAPE, 0)}")
+    return ved_pair(vol, VEDConfig.cuda(), lambda c: ved(vol, config=c, device="cuda"),
+                    VED_KERNELS)
+
+
+def phase_ved_gd(gen):
+    """The reference-faithful VED at 512^3 through the ITK façade, then the
+    standalone smooth_fd Hessian (B11) once."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import VEDConfig, VEDMultigridImageFilter
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_vesselness
+    from multigridanisotropicdiffusion_tpu_torch.ops.hessian import hessian
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import tube_phantom
+
+    log("== phase 9: reference-faithful VED, VEDMultigridImageFilter at 512^3 float32 "
+        "with VEDConfig.cuda(hessian_mode='gaussian_derivative')")
+    vol = tube_phantom(SHAPE, gen)
+
+    def run(cfg):
+        return (VEDMultigridImageFilter(device="cuda").set_config(cfg).set_input(vol)
+                .update().get_result())
+
+    launches = ved_pair(vol, VEDConfig.cuda(hessian_mode="gaussian_derivative"), run,
+                        GD_KERNELS, GD_LAUNCHES)
+    log("  hessian(vol, 2.0, mode='smooth_fd', use_kernels=True) at 512^3")
+    cuda_vesselness.fd_hessian.launches = 0
+    got = hessian(vol, 2.0, mode="smooth_fd", use_kernels=True)
+    torch.cuda.synchronize()
+    launches["fd_hessian"] = cuda_vesselness.fd_hessian.launches
+    if launches["fd_hessian"] != 1:
+        fail(f"hessian(mode='smooth_fd') launched B11 {launches['fd_hessian']} times")
+    check("hessian smooth_fd 512^3 f32", got, hessian(vol, 2.0, mode="smooth_fd"))
+    del got, vol
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_kernel_less(gen):
+    """The modules without kernels on the card at 256^3, phase 5's
+    construction: the matrix-free operator, the Chebyshev smoother and the
+    verbose trace, each against the compressed DCA solve."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
+    from multigridanisotropicdiffusion_tpu_torch.models.trace import mad_diffusion_verbose
+
+    log("== phase 10: matrix-free operator, Chebyshev smoother and verbose trace at 256^3")
+    shape = (256,) * 3
+    tensor = bench_tensor(shape, gen)
+    b = torch.rand(shape, generator=gen, device="cuda") * 255.0
+    kw = dict(time_step=DT, tolerance=1e-6)
+    ref = mad_diffusion(b, tensor, config=MADConfig.cuda(**kw), device="cuda").output
+    summary = []
+
+    def report(case, out, cycles, relres, seconds):
+        rel = ((out - ref).norm() / ref.norm()).item()
+        log(f"  {case}: {cycles} cycles, {seconds:.3f} s, relres {relres:.3e}, "
+            f"rel_l2 to the compressed DCA solve {rel:.3e} (bound 1e-4)")
+        if not (bool(torch.isfinite(out).all()) and relres <= 1e-6 and cycles < 100
+                and rel <= 1e-4):
+            fail(f"{case} is off")
+        summary.append(dict(case=case, cycles=cycles, seconds=seconds, relres=relres,
+                            rel_l2_vs_compressed=rel))
+
+    for case, cfg in (("matrix_free", MADConfig.cuda(operator_repr="matrix_free", **kw)),
+                      ("chebyshev", MADConfig.cuda(smoother="chebyshev", **kw))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mad_diffusion(b, tensor, config=cfg, device="cuda")
+        torch.cuda.synchronize()
+        report(f"MADConfig.cuda({case})", res.output, int(res.num_cycles[0]),
+               float(res.final_residual[0]), time.perf_counter() - t0)
+        del res
+    lines = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = mad_diffusion_verbose(b, tensor, config=MADConfig.cuda(False, **kw),
+                                   print_fn=lines.append, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cycles = sum(line.startswith("|--- VCycle") for line in lines)
+    log(f"  mad_diffusion_verbose: {len(lines)} lines, the first cycle's:")
+    for line in lines[:lines.index("|--- VCycle n. 2 ---|") if cycles > 1 else None]:
+        log(f"    {line}")
+    # the last line, level 0's last smoothing, is the solve's relative residual
+    report("mad_diffusion_verbose (mixed_precision=False)", out, cycles,
+           float(lines[-1].split("= ")[1]), seconds)
+    summary[-1]["trace_lines"] = len(lines)
+    del tensor, b, ref, out
+    torch.cuda.empty_cache()
+    return summary
 
 
 def all_counters():
@@ -814,6 +1023,9 @@ def all_counters():
         "stencil_stored_residual": cuda_stencil_stored.cuda_residual,
         "stencil_2d_halfsweep": cuda_stencil2d.halfsweep,
         "stencil_2d_residual": cuda_stencil2d.cuda_residual,
+        "conv_y": cuda_conv.conv_y,
+        "conv_x": cuda_conv.conv_x,
+        "fd_hessian": cuda_vesselness.fd_hessian,
     }
 
 
@@ -1018,7 +1230,12 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     launches_2d, solves_2d = phase_2d(gen)
     launches.update({k: n for k, n in launches_2d.items() if k.startswith("stencil_2d")})
-    log(f"phases 2-8 took {time.perf_counter() - t_start:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    launches.update({k: n for k, n in phase_ved_gd(gen).items()
+                     if k in ("conv_y", "conv_x", "fd_hessian")})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernel_less = phase_kernel_less(gen)
+    log(f"phases 2-10 took {time.perf_counter() - t_start:.1f} s")
 
     cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
     rows = []
@@ -1055,7 +1272,7 @@ def main():
                 "bound_ms": bound_ms(e_bytes, e_ops)[0],
                 "max_abs_err": errs[(case, extra)]})
         rows.append(row)
-    print(json.dumps({"solves": solves + solves_2d}))
+    print(json.dumps({"solves": solves + solves_2d + kernel_less}))
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -93,6 +93,15 @@ class StencilOperator:
     def offdiag_apply(self, x: torch.Tensor) -> torch.Tensor:
         return offdiag_apply(self, x)
 
+    def offdiag_abs_rowsum(self) -> torch.Tensor:
+        """Per-row sum of |off-diagonal coefficients| (Gershgorin radius)."""
+        c = self.center_index
+        out = None
+        for k, plane in enumerate(self.coeffs):
+            if k != c:
+                out = plane.abs() if out is None else out + plane.abs()
+        return out
+
     def __repr__(self) -> str:
         return f"StencilOperator(K={len(self.offsets)}, shape={self.shape})"
 

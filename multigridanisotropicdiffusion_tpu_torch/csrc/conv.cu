@@ -1,8 +1,10 @@
-// Gaussian smoothing of the VED pipeline: the 1-D correlation along z (B6)
-// and the fused y-then-x correlation (B7).
+// Gaussian smoothing and Gaussian-derivative passes of the VED pipeline: the
+// 1-D correlation along z (B6), the fused y-then-x correlation (B7), and the
+// single-axis correlations along y and x (B10).
 //
-// Replace the Pallas kernels `_conv_z_kernel` (built by `_build_conv_z`) and
-// `_conv_yx_kernel` (built by `_build_conv_yx`) in
+// Replace the Pallas kernels `_conv_z_kernel` (built by `_build_conv_z`),
+// `_conv_yx_kernel` (`_build_conv_yx`), `_conv_y_kernel` (`_build_conv_y`)
+// and `_conv_x_kernel` (`_build_conv_x`) in
 // multigridanisotropicdiffusion_tpu/ops/pallas_conv.py.  The TPU kernels
 // phrase the y and x passes as banded matrix products on the MXU, pad z to
 // whole tiles and take only x % 128 == 0, y % 8 == 0 shapes; these kernels
@@ -13,11 +15,16 @@
 //                    = clamp(k + t - r, 0, Z - 1) (edge replication)
 //   conv_yx:  mid[k,j,i] = sum_t wy[t] u[k, clamp(j + t - ry), i]   (not rounded)
 //             out[k,j,i] = sum_t wx[t] mid[k, j, clamp(i + t - rx)]
+//   conv_y:   out[k,j,i] = sum_t wy[t] u[k, clamp(j + t - ry), i]   (rounded)
+//   conv_x:   out[k,j,i] = sum_t wx[t] u[k, j, clamp(i + t - rx)]   (rounded)
 //
 // Taps run in ascending t and zero taps are skipped (the z-slab pipeline pads
 // short kernels with zeros), as in ops/hessian.py's `_conv_axis`; the sums
 // are in the compute type (float for bf16 storage) and round once at the
-// store.  Each product and sum rounds on its own (no fused multiply-add), as
+// store.  conv_y and conv_x are the single-axis passes of the
+// gaussian_derivative Hessian, which rounds to the storage type after every
+// pass, so they cannot be served by conv_yx (which rounds only after x).
+// Each product and sum rounds on its own (no fused multiply-add), as
 // in the plain versions, so the smoothed fields agree bit for bit: the
 // vesselness select downstream compares responses of different scales, and
 // a last-bit difference at a near-tie would pick another scale's Hessian.
@@ -27,16 +34,19 @@
 //
 // Bound on the card: device-memory bandwidth.  At 512^3 f32 with sigma = 2
 // (r = 8), conv_z reads 530 planes and writes 514 (1.10 GB, 0.33 ms at
-// 3.35 TB/s); conv_yx reads and writes 514 planes (1.08 GB, 0.32 ms).
+// 3.35 TB/s); conv_yx reads and writes 514 planes (1.08 GB, 0.32 ms);
+// conv_y and conv_x each read and write 512 planes (1.07 GB, 0.32 ms).
 // Design: conv_z runs one thread per 8 consecutive z outputs of one (y, x)
 // column, threads along x so every plane load is one coalesced row; the 8
 // outputs slide over (nt + 7) input planes held one at a time in a register,
 // so each input plane is read about (nt + 7) / 8 times instead of nt times
-// (the re-reads hit L2).  conv_yx runs one block per (z, y-tile, x-tile):
-// it loads the (TY + 2ry) x (TX + 2rx) input tile with clamped indices into
-// shared memory (clamping is the edge replication), runs the y pass into a
-// shared TY x (TX + 2rx) intermediate and the x pass to the output, so the
-// volume makes one round trip through device memory, as on the TPU.  Its
+// (the re-reads hit L2).  conv_yx, conv_y and conv_x are one tile kernel with
+// a compile-time choice of pass (y, x, or y then x): one block per (z,
+// y-tile, x-tile) loads the input tile with its halos of the axes it
+// convolves, clamped (clamping is the edge replication), into shared memory;
+// the y pass runs into a shared intermediate (y then x) or to the output
+// (y only), the x pass from the intermediate or the tile to the output, so
+// the volume makes one round trip through device memory per launch.  The
 // 32 x 8 threads walk the tile in rows, lanes along x (coalesced loads,
 // conflict-free shared memory).  Tiles (32 x 64 outputs) shrink until they
 // fit the 227 KB of shared memory a block may use.
@@ -110,13 +120,23 @@ __global__ void __launch_bounds__(kBX * kBY)
   }
 }
 
-template <typename T>
+// Passes of the tile kernel: y only, x only, or y then x (unrounded between).
+constexpr int kPassY = 1;
+constexpr int kPassX = 2;
+constexpr int kPassYX = kPassY | kPassX;
+
+// The tile kernel of conv_yx (kPassYX), conv_y (kPassY) and conv_x (kPassX).
+// An axis the kernel does not convolve comes with one tap (radius 0), so
+// its tile carries no halo along that axis; its taps are never read.
+template <typename T, int kPass>
 __global__ void __launch_bounds__(kBX * kBY)
-    conv_yx_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t ny,
-                   int64_t nx, Taps<typename mad::Compute<T>::type> taps_y,
-                   int nty, Taps<typename mad::Compute<T>::type> taps_x,
-                   int ntx, int tile_y, int tile_x) {
+    conv_tile_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t ny,
+                     int64_t nx, Taps<typename mad::Compute<T>::type> taps_y,
+                     int nty, Taps<typename mad::Compute<T>::type> taps_x,
+                     int ntx, int tile_y, int tile_x) {
   using A = typename mad::Compute<T>::type;
+  constexpr bool kY = (kPass & kPassY) != 0;
+  constexpr bool kX = (kPass & kPassX) != 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   A* wy = reinterpret_cast<A*>(smem_raw);
   A* wx = wy + nty;
@@ -125,7 +145,7 @@ __global__ void __launch_bounds__(kBX * kBY)
   const int width = tile_x + 2 * rx;
   const int height = tile_y + 2 * ry;
   A* tile = wx + ntx;              // height x width input tile
-  A* mid = tile + height * width;  // tile_y x width after the y pass
+  A* mid = tile + height * width;  // tile_y x width after the y pass (y then x)
 
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -145,31 +165,39 @@ __global__ void __launch_bounds__(kBX * kBY)
   }
   __syncthreads();
 
-  for (int row = ty; row < tile_y; row += kBY) {
-    for (int c = tx; c < width; c += kBX) {
-      A acc = 0;
-      for (int t = 0; t < nty; ++t) {
-        const A wt = wy[t];
-        if (wt != A(0)) {
-          acc = mad::add_rn(acc, mad::mul_rn(wt, tile[(row + t) * width + c]));
+  T* dst = out + k * ny * nx;
+  if constexpr (kY) {
+    for (int row = ty; row < tile_y; row += kBY) {
+      for (int c = tx; c < width; c += kBX) {
+        A acc = 0;
+        for (int t = 0; t < nty; ++t) {
+          const A wt = wy[t];
+          if (wt != A(0)) {
+            acc = mad::add_rn(acc, mad::mul_rn(wt, tile[(row + t) * width + c]));
+          }
+        }
+        if constexpr (kX) {
+          mid[row * width + c] = acc;
+        } else if (y0 + row < ny && x0 + c < nx) {
+          mad::store(dst + (y0 + row) * nx + x0 + c, acc);
         }
       }
-      mid[row * width + c] = acc;
     }
   }
-  __syncthreads();
-
-  T* dst = out + k * ny * nx;
-  for (int row = ty; row < tile_y && y0 + row < ny; row += kBY) {
-    for (int c = tx; c < tile_x && x0 + c < nx; c += kBX) {
-      A acc = 0;
-      for (int t = 0; t < ntx; ++t) {
-        const A wt = wx[t];
-        if (wt != A(0)) {
-          acc = mad::add_rn(acc, mad::mul_rn(wt, mid[row * width + c + t]));
+  if constexpr (kX) {
+    if constexpr (kY) __syncthreads();
+    const A* rows = kY ? mid : tile;  // x only: ry = 0, tile row = output row
+    for (int row = ty; row < tile_y && y0 + row < ny; row += kBY) {
+      for (int c = tx; c < tile_x && x0 + c < nx; c += kBX) {
+        A acc = 0;
+        for (int t = 0; t < ntx; ++t) {
+          const A wt = wx[t];
+          if (wt != A(0)) {
+            acc = mad::add_rn(acc, mad::mul_rn(wt, rows[row * width + c + t]));
+          }
         }
+        mad::store(dst + (y0 + row) * nx + x0 + c, acc);
       }
-      mad::store(dst + (y0 + row) * nx + x0 + c, acc);
     }
   }
 }
@@ -189,21 +217,23 @@ int launch_conv_z(const void* in, void* out, int64_t zi, int64_t ny,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_conv_yx(const void* in, void* out, int64_t nz, int64_t ny,
-                   int64_t nx, const void* taps_y, int64_t nty,
-                   const void* taps_x, int64_t ntx, void* stream) {
+template <typename T, int kPass>
+int launch_conv_tile(const void* in, void* out, int64_t nz, int64_t ny,
+                     int64_t nx, const void* taps_y, int64_t nty,
+                     const void* taps_x, int64_t ntx, void* stream) {
   using A = typename mad::Compute<T>::type;
   if (nty < 1 || nty > kMaxTaps || ntx < 1 || ntx > kMaxTaps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int ry = static_cast<int>(nty - 1) / 2;
   const int rx = static_cast<int>(ntx - 1) / 2;
+  const bool two_pass = kPass == kPassYX;
   int tile_y = 32;
   int tile_x = 64;
   auto smem = [&]() {
     const size_t width = tile_x + 2 * rx;
-    return (nty + ntx + (tile_y + 2 * ry) * width + tile_y * width) * sizeof(A);
+    return (nty + ntx + (tile_y + 2 * ry) * width + (two_pass ? tile_y * width : 0)) *
+           sizeof(A);
   };
   while (smem() > kMaxSmem) {
     if (tile_y > 1) {
@@ -215,18 +245,30 @@ int launch_conv_yx(const void* in, void* out, int64_t nz, int64_t ny,
   const size_t bytes = smem();
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_yx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_tile_kernel<T, kPass>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(mad::blocks_for(nx, tile_x), mad::blocks_for(ny, tile_y),
                   static_cast<unsigned>(nz));
-  conv_yx_kernel<T><<<grid, dim3(kBX, kBY), bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
+  conv_tile_kernel<T, kPass><<<grid, dim3(kBX, kBY), bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<T*>(out), ny, nx,
       taps_from_host<A>(taps_y, nty), static_cast<int>(nty),
       taps_from_host<A>(taps_x, ntx), static_cast<int>(ntx), tile_y, tile_x);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One axis of the tile kernel: the other axis gets a single unit tap.
+template <typename T, int kPass>
+int launch_conv_axis(const void* in, void* out, int64_t nz, int64_t ny,
+                     int64_t nx, const void* taps, int64_t nt, void* stream) {
+  using A = typename mad::Compute<T>::type;
+  const A unit = A(1);
+  if (kPass == kPassY) {
+    return launch_conv_tile<T, kPass>(in, out, nz, ny, nx, taps, nt, &unit, 1, stream);
+  }
+  return launch_conv_tile<T, kPass>(in, out, nz, ny, nx, &unit, 1, taps, nt, stream);
 }
 
 }  // namespace
@@ -242,8 +284,20 @@ int launch_conv_yx(const void* in, void* out, int64_t nz, int64_t ny,
       const void* in, void* out, int64_t nz, int64_t ny, int64_t nx,          \
       const void* taps_y, int64_t nty, const void* taps_x, int64_t ntx,       \
       void* stream) {                                                         \
-    return launch_conv_yx<T>(in, out, nz, ny, nx, taps_y, nty, taps_x, ntx,   \
-                             stream);                                         \
+    return launch_conv_tile<T, kPassYX>(in, out, nz, ny, nx, taps_y, nty,     \
+                                        taps_x, ntx, stream);                 \
+  }                                                                           \
+  extern "C" int mad_conv_y_##SUF(                                            \
+      const void* in, void* out, int64_t nz, int64_t ny, int64_t nx,          \
+      const void* taps, int64_t ntaps, void* stream) {                        \
+    return launch_conv_axis<T, kPassY>(in, out, nz, ny, nx, taps, ntaps,      \
+                                       stream);                               \
+  }                                                                           \
+  extern "C" int mad_conv_x_##SUF(                                            \
+      const void* in, void* out, int64_t nz, int64_t ny, int64_t nx,          \
+      const void* taps, int64_t ntaps, void* stream) {                        \
+    return launch_conv_axis<T, kPassX>(in, out, nz, ny, nx, taps, ntaps,      \
+                                       stream);                               \
   }
 
 MAD_FOR_EACH_TYPE(MAD_CONV_ENTRY)

@@ -1,10 +1,14 @@
 // The VED vesselness pipeline's per-voxel kernels: the fused finite-
 // difference Hessian + eigenvalues + vesselness + running best-select (B8),
-// and the final diffusion-tensor assembly (B9).
+// the final diffusion-tensor assembly (B9), and the standalone finite-
+// difference Hessian of hessian(mode='smooth_fd') (B11).
 //
 // Replace the Pallas kernels `_fdv_kernel` (built by `_build_fdv`) and
 // `_assembly_kernel` (built by `_build_assembly`) in
-// multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py.  The formulas
+// multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py, and `_fd_kernel`
+// (built by `_build_fd`) in multigridanisotropicdiffusion_tpu/ops/
+// pallas_conv.py.  B8 and B11 share one FD stencil (`fd_hessian_at`), as the
+// Pallas kernels share `_fd_plane_blocks`.  The formulas
 // are those of models/ved.py (`vesselness_measure`, `_make_assemble_fn`) and
 // ops/eigen3.py (`eigh3`), written out here; the TPU's polynomial arccos is
 // replaced by acos.
@@ -20,6 +24,8 @@
 // The select is pointwise, so the later scales update the best planes IN
 // PLACE: no two threads touch one voxel, and a voxel whose response does not
 // win is neither read (its Hessian) nor written.
+// B11, per output voxel: h as in B8, each plane rounded to the storage type
+//   into a (6, Z, Y, X) stack.
 // B9, per voxel: q3 = the eigenvector of the largest eigenvalue of h,
 //   v = max(resp, 0)^(1/sensitivity), T = d1 I + (d3 - d1) q3 q3^T with
 //   d1 = 1 + (eps - 1) v, d3 - d1 = (omega - eps) v; the identity where v <= 0.
@@ -35,7 +41,8 @@
 //
 // Bound on the card, 512^3 float32: device-memory bandwidth.  B8 reads 514
 // planes of us; the first scale writes 7 planes (4.3 GB, 1.28 ms at 3.35
-// TB/s); a later scale reads the best response and writes the planes of the
+// TB/s); B11 reads 514 planes and writes 6 volumes (3.76 GB, 1.12 ms; 24
+// operations per voxel); a later scale reads the best response and writes the planes of the
 // voxels it wins (at most 8.1 GB, 2.4 ms, if every plane were read and
 // written).  About 170 float operations per voxel, 7 of them math-library
 // calls (2.3e10 in all, 0.34 ms at 67 TFLOP/s), sit below the memory bound;
@@ -221,20 +228,16 @@ __device__ __forceinline__ void swap_abs(Rn<A>& a, Rn<A>& b) {
   }
 }
 
+// The six scaled central second differences (symfield order) at output voxel
+// (k, j, i) of a valid-z smoothed field us (Z + 2, Y, X): 19 points, z from
+// the 1-plane halo, y and x neighbours clamped at the global borders (edge
+// replication), in the compute type, unrounded.
 template <typename T>
-__global__ void __launch_bounds__(kBX * kBY)
-    fd_vesselness_kernel(const T* __restrict__ us,
-                         typename mad::Compute<T>::type* __restrict__ resp,
-                         T* __restrict__ h, int64_t nz, int64_t ny, int64_t nx,
-                         Sym<typename mad::Compute<T>::type> facs, double two_a2,
-                         double two_b2, double two_g2, int first) {
+__device__ __forceinline__ Sym<typename mad::Compute<T>::type> fd_hessian_at(
+    const T* __restrict__ us, int64_t k, int64_t j, int64_t i, int64_t ny,
+    int64_t nx, const Sym<typename mad::Compute<T>::type>& facs) {
   using A = typename mad::Compute<T>::type;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBX + threadIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBY + threadIdx.y;
-  const int64_t k = blockIdx.z;
-  if (i >= nx || j >= ny) return;
   const int64_t plane = ny * nx;
-  // y and x neighbours clamp at the global borders (edge replication)
   const int64_t yp = j + 1 < ny ? nx : 0;
   const int64_t ym = j > 0 ? -nx : 0;
   const int64_t xp = i + 1 < nx ? 1 : 0;
@@ -252,6 +255,34 @@ __global__ void __launch_bounds__(kBX * kBY)
   hv.a11 = (S(0, yp, 0) - two * c + S(0, ym, 0)) * facs.a11;
   hv.a12 = (S(0, yp, xp) - S(0, yp, xm) - S(0, ym, xp) + S(0, ym, xm)) * facs.a12;
   hv.a22 = (S(0, 0, xp) - two * c + S(0, 0, xm)) * facs.a22;
+  return hv;
+}
+
+// The six planes of h at flat voxel o of an n-voxel volume, rounded to T.
+template <typename T, typename A>
+__device__ __forceinline__ void store_planes(T* __restrict__ h, int64_t n,
+                                             int64_t o, const Sym<A>& hv) {
+  mad::store(h + o, hv.a00.v);
+  mad::store(h + n + o, hv.a01.v);
+  mad::store(h + 2 * n + o, hv.a02.v);
+  mad::store(h + 3 * n + o, hv.a11.v);
+  mad::store(h + 4 * n + o, hv.a12.v);
+  mad::store(h + 5 * n + o, hv.a22.v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBX * kBY)
+    fd_vesselness_kernel(const T* __restrict__ us,
+                         typename mad::Compute<T>::type* __restrict__ resp,
+                         T* __restrict__ h, int64_t nz, int64_t ny, int64_t nx,
+                         Sym<typename mad::Compute<T>::type> facs, double two_a2,
+                         double two_b2, double two_g2, int first) {
+  using A = typename mad::Compute<T>::type;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBX + threadIdx.x;
+  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBY + threadIdx.y;
+  const int64_t k = blockIdx.z;
+  if (i >= nx || j >= ny) return;
+  const Sym<A> hv = fd_hessian_at(us, k, j, i, ny, nx, facs);
 
   const Scaled<A> e = scaled_eigenvalues(hv);
   Rn<A> l0 = e.lo * e.scale, l1 = e.mid * e.scale, l2 = e.hi * e.scale;
@@ -260,16 +291,25 @@ __global__ void __launch_bounds__(kBX * kBY)
   swap_abs(l0, l1);
   const Rn<A> v = vesselness(l0, l1, l2, A(two_a2), A(two_b2), A(two_g2));
 
+  const int64_t plane = ny * nx;
   const int64_t o = k * plane + j * nx + i;
-  const int64_t n = nz * plane;
   if (!first && !(v.v > resp[o])) return;
   resp[o] = v.v;
-  mad::store(h + o, hv.a00.v);
-  mad::store(h + n + o, hv.a01.v);
-  mad::store(h + 2 * n + o, hv.a02.v);
-  mad::store(h + 3 * n + o, hv.a11.v);
-  mad::store(h + 4 * n + o, hv.a12.v);
-  mad::store(h + 5 * n + o, hv.a22.v);
+  store_planes(h, nz * plane, o, hv);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBX * kBY)
+    fd_hessian_kernel(const T* __restrict__ us, T* __restrict__ h, int64_t nz,
+                      int64_t ny, int64_t nx,
+                      Sym<typename mad::Compute<T>::type> facs) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBX + threadIdx.x;
+  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBY + threadIdx.y;
+  const int64_t k = blockIdx.z;
+  if (i >= nx || j >= ny) return;
+  const int64_t plane = ny * nx;
+  store_planes(h, nz * plane, k * plane + j * nx + i,
+               fd_hessian_at(us, k, j, i, ny, nx, facs));
 }
 
 // ops/eigen3.py `_candidate`
@@ -358,6 +398,19 @@ int launch_fd_vesselness(const void* us, void* resp, void* h, int64_t nz,
 }
 
 template <typename T>
+int launch_fd_hessian(const void* us, void* h, int64_t nz, int64_t ny,
+                      int64_t nx, const double* f, void* stream) {
+  using A = typename mad::Compute<T>::type;
+  const Sym<A> facs{A(f[0]), A(f[1]), A(f[2]), A(f[3]), A(f[4]), A(f[5])};
+  const dim3 grid(mad::blocks_for(nx, kBX), mad::blocks_for(ny, kBY),
+                  static_cast<unsigned>(nz));
+  fd_hessian_kernel<T><<<grid, dim3(kBX, kBY), 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(us), static_cast<T*>(h), nz, ny, nx, facs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_tensor_assembly(const void* resp, const void* h, void* out,
                            int64_t n, double inv_sens, double eps_m1,
                            double omega_m_eps, void* stream) {
@@ -380,6 +433,13 @@ int launch_tensor_assembly(const void* resp, const void* h, void* out,
     const double f[6] = {f00, f01, f02, f11, f12, f22};                       \
     return launch_fd_vesselness<T>(us, resp, h, nz, ny, nx, f, two_a2,        \
                                    two_b2, two_g2, first, stream);            \
+  }                                                                           \
+  extern "C" int mad_fd_hessian_##SUF(                                        \
+      const void* us, void* h, int64_t nz, int64_t ny, int64_t nx,            \
+      double f00, double f01, double f02, double f11, double f12, double f22, \
+      void* stream) {                                                         \
+    const double f[6] = {f00, f01, f02, f11, f12, f22};                       \
+    return launch_fd_hessian<T>(us, h, nz, ny, nx, f, stream);                \
   }                                                                           \
   extern "C" int mad_tensor_assembly_##SUF(                                   \
       const void* resp, const void* h, void* out, int64_t n, double inv_sens, \

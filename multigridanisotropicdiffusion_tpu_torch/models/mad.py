@@ -22,9 +22,12 @@ Differences from the JAX package:
   gates on assembly and transfers.  On a CPU tensor each kernel wrapper
   takes its plain version; on a CUDA tensor it launches the kernel or
   raises.
+* The matrix-free operator (``operator_repr='matrix_free'``,
+  :mod:`..ops.matfree`) and the Chebyshev smoother have no kernels, in the
+  JAX package or here: they run as plain PyTorch on every device.  The JAX
+  package's deprecated ``MADConfig.matrix_free`` alias is not carried over.
 * Not ported yet, and refused with ``NotImplementedError``: device meshes
-  and halo exchange (ROADMAP A11), the matrix-free operator and the
-  Chebyshev smoother (A10).
+  and halo exchange (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..ops.coarse import CoarseSolver, build_coarse_solver, coarse_solve
 from ..ops.compressed import assemble_compressed_dca
 from ..ops.dca import assemble_dca
 from ..ops.galerkin import assemble_galerkin_parabolic, prune_stored_operator
+from ..ops.matfree import MatrixFreeDCAOperator
 from ..ops.smoothers import DEFAULT_JACOBI_WEIGHT, make_residual, make_smoother
 from ..ops.transfer import prolong, restrict, restrict_tensor
 
@@ -88,8 +92,8 @@ class MADConfig:
     #: fraction of the diagonal's maximum are lumped onto their clipped
     #: radius-1 offset (ops.galerkin.prune_stored_operator); 0 keeps all.
     galerkin_prune_tol: float = 0.0
-    #: 'stored' (19/9 planes) or 'compressed' (10/6 planes, ops.compressed);
-    #: 'matrix_free' waits for ROADMAP A10.
+    #: 'stored' (19/9 planes), 'compressed' (10/6 planes, ops.compressed)
+    #: or 'matrix_free' (applied from the tensor planes, ops.matfree).
     operator_repr: str = "stored"
     #: run the 3D solve through the CUDA kernels (see the module docstring):
     #: the counterpart of the JAX package's use_pallas plus its TPU-backend
@@ -114,16 +118,8 @@ class MADConfig:
             raise ValueError(f"unknown coarse operator: {self.coarse_operator!r}")
         if self.galerkin_variant not in ("exact", "collapsed"):
             raise ValueError(f"unknown galerkin_variant: {self.galerkin_variant!r}")
-        if self.operator_repr == "matrix_free":
-            raise NotImplementedError(
-                "the matrix-free operator is not ported yet (ROADMAP A10)"
-            )
-        if self.operator_repr not in ("stored", "compressed"):
+        if self.operator_repr not in ("stored", "compressed", "matrix_free"):
             raise ValueError(f"unknown operator_repr: {self.operator_repr!r}")
-        if self.smoother in ("chebyshev", "cheby"):
-            raise NotImplementedError(
-                "the Chebyshev smoother is not ported yet (ROADMAP A10)"
-            )
         if self.defect_dtype is not None:
             torch_dtype(self.defect_dtype)  # must name a dtype
 
@@ -163,10 +159,10 @@ def build_hierarchy(
     (itkGridsHierarchy.hxx:110-201); Galerkin computes every coarser level
     from the one above it as ``I - R (I - A_f) P`` (stored operators,
     ``galerkin_variant`` as in :class:`MADConfig`).  ``operator_repr`` picks
-    the stored or compressed form of level 0 and of the DCA levels; the
-    coarsest level's stored form feeds the dense LU.  With ``use_kernels``,
-    3D compressed assembly and the 3D tensor restriction go through their
-    kernels.
+    the stored, compressed or matrix-free form of level 0 and of the DCA
+    levels; the coarsest level's stored form feeds the dense LU.  With
+    ``use_kernels``, 3D compressed assembly and the 3D tensor restriction go
+    through their kernels.
     """
     if operator_repr == "compressed":
         def make_op(t, lvl):
@@ -178,10 +174,11 @@ def build_hierarchy(
     elif operator_repr == "stored":
         def make_op(t, lvl):
             return assemble_dca(t, lvl.spacing, time_step)
+    elif operator_repr == "matrix_free":
+        def make_op(t, lvl):
+            return MatrixFreeDCAOperator(t, lvl.spacing, time_step)
     else:
-        raise NotImplementedError(
-            f"operator_repr={operator_repr!r} is not ported yet (ROADMAP A10)"
-        )
+        raise ValueError(f"unknown operator_repr: {operator_repr!r}")
 
     ops = [make_op(tensor, levels[0])]
     t = tensor

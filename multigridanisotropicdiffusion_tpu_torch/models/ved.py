@@ -15,8 +15,10 @@ With ``use_kernels`` and ``hessian_mode='smooth_fd'`` (``VEDConfig.cuda()``)
 every scale runs B6 (z smoothing) -> B7 (y+x smoothing) -> B8 (FD Hessian,
 eigenvalues, vesselness, running select) and the tensor comes from B9
 (``ops.cuda_conv``, ``ops.cuda_vesselness``); otherwise the generic path
-computes the Hessian planes, the eigenvalues and, once, the full eigenframe
-as plain tensor ops.  Tensors are ``(6, *shape)`` stacks in symfield order.
+computes the Hessian planes, the eigenvalues and, once, the full eigenframe.
+In ``gaussian_derivative`` mode with ``use_kernels`` the generic path's
+Hessian runs through B6 (z) and B10 (y, x) and the rest stays plain tensor
+ops, as the JAX package leaves it to XLA.  Tensors are ``(6, *shape)`` stacks in symfield order.
 
 Large volumes are processed in z slabs (``_auto_z_slab``): a Python loop over
 slabs that writes into preallocated outputs.  Not ported yet: device meshes
@@ -66,7 +68,8 @@ class VEDConfig:
     galerkin_variant: str = "collapsed"
     galerkin_prune_tol: float = 0.0
     operator_repr: str = "stored"
-    #: the matrix-free operator is not ported yet (A10)
+    #: solve with the matrix-free operator (mad_config() maps it to
+    #: operator_repr='matrix_free', as the JAX package's alias does)
     matrix_free: bool = False
     #: the pipeline's smooth_fd path and the solve run through the CUDA
     #: kernels (the JAX package's use_pallas and its TPU-backend gates)
@@ -77,18 +80,15 @@ class VEDConfig:
     #: mixed-precision defect cycles of the solve (MADConfig.defect_dtype)
     defect_dtype: str | None = None
     #: 'smooth_fd' (smooth once per scale, then central differences) or
-    #: 'gaussian_derivative' (exact sampled derivative kernels per component;
-    #: no CUDA kernels yet, ROADMAP B10)
+    #: 'gaussian_derivative' (exact sampled derivative kernels per component,
+    #: the reference-faithful form: with use_kernels its 1-D passes run
+    #: through B6 and B10)
     hessian_mode: str = "smooth_fd"
     #: storage dtype of the pipeline's streamed fields (e.g. 'bfloat16');
     #: the math runs in float32 for 16-bit storage.  None = the solve dtype.
     pipeline_dtype: str | None = None
 
     def __post_init__(self):
-        if self.matrix_free:
-            raise NotImplementedError(
-                "the matrix-free operator is not ported yet (ROADMAP A10)"
-            )
         if self.hessian_mode not in ("smooth_fd", "gaussian_derivative"):
             raise ValueError(f"unknown hessian mode: {self.hessian_mode!r}")
         self.mad_config()  # the solver options are MADConfig's to check
@@ -116,7 +116,7 @@ class VEDConfig:
             coarse_operator=self.coarse_operator,
             galerkin_variant=self.galerkin_variant,
             galerkin_prune_tol=self.galerkin_prune_tol,
-            operator_repr=self.operator_repr,
+            operator_repr="matrix_free" if self.matrix_free else self.operator_repr,
             use_kernels=self.use_kernels,
             defect_dtype=self.defect_dtype,
         )

@@ -92,6 +92,18 @@ class CompressedDCAOperator:
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return self.diag * x + self.offdiag_apply(x)
 
+    def offdiag_abs_rowsum(self) -> torch.Tensor:
+        """Per-row sum of |off-diagonal coefficients| (Gershgorin radius):
+        the face planes once, each mixed plane on its four offsets."""
+        ndim = self._ndim
+        out = None
+        for p in [self.planes[2 * d] for d in range(ndim)] + \
+                [self.planes[2 * d + 1] for d in range(ndim)]:
+            out = p.abs() if out is None else out + p.abs()
+        for k in range(ndim * (ndim - 1) // 2):
+            out = out + 4.0 * self.planes[2 * ndim + k].abs()
+        return out
+
     def __repr__(self) -> str:
         return f"CompressedDCAOperator(shape={self.shape})"
 

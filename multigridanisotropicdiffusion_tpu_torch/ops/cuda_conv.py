@@ -1,19 +1,24 @@
-"""The Gaussian smoothing kernels of the VED pipeline (``csrc/conv.cu``):
-the 1-D correlation along z (B6) and the fused y-then-x correlation (B7).
+"""The 1-D correlation kernels of the VED pipeline (``csrc/conv.cu``): along
+z (B6), the fused y-then-x smoothing (B7), and the single-axis passes along
+y and x (B10) of ``hessian(mode='gaussian_derivative')``.
 
 Counterpart of ``multigridanisotropicdiffusion_tpu.ops.pallas_conv``
-(``pallas_conv_z``, ``pallas_conv_yx``), without its banded-matmul
-formulation, z padding and lane/granule gates: the kernels take any shape.
+(``pallas_conv_z``, ``pallas_conv_yx``, ``pallas_conv_y``,
+``pallas_conv_x``), without its banded-matmul formulation, z padding and
+lane/granule gates: the kernels take any shape.  Valid mode is z-only, as
+the JAX package's ``pallas_conv_supported`` has it.
 
 Semantics (``ops.hessian._conv_axis``): ``out[i] = sum_j k[j] u[i + j - r]``
 along the axis, edge-replicated at the borders, or in ``valid`` mode over an
 input that already carries the r-thick halos (the output is 2r shorter).
 The taps are summed in ascending ``j`` with zero taps skipped, in the
-compute dtype (float32 for bf16 storage, which rounds once at the end).
+compute dtype (float32 for bf16 storage), and every pass rounds once to the
+storage dtype at its store; the fused y+x pass rounds once, after x.
 
 Each wrapper takes the plain PyTorch version for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises.  ``conv_z.launches`` and
-``conv_yx.launches`` count launches.
+tensor it launches the kernel or raises.  ``conv_z.launches``,
+``conv_yx.launches``, ``conv_y.launches`` and ``conv_x.launches`` count
+launches.
 """
 
 from __future__ import annotations
@@ -61,6 +66,16 @@ def conv_axis_plain(u: torch.Tensor, taps, axis: int, valid: bool = False,
 def conv_z_plain(u: torch.Tensor, taps, valid: bool = False) -> torch.Tensor:
     """Plain version of the z kernel."""
     return conv_axis_plain(u, taps, 0, valid)
+
+
+def conv_y_plain(u: torch.Tensor, taps) -> torch.Tensor:
+    """Plain version of the y kernel (edge-replicated, rounded)."""
+    return conv_axis_plain(u, taps, 1)
+
+
+def conv_x_plain(u: torch.Tensor, taps) -> torch.Tensor:
+    """Plain version of the x kernel (edge-replicated, rounded)."""
+    return conv_axis_plain(u, taps, 2)
 
 
 def conv_yx_plain(u: torch.Tensor, taps_y, taps_x) -> torch.Tensor:
@@ -134,3 +149,43 @@ def conv_yx(u: torch.Tensor, taps_y, taps_x) -> torch.Tensor:
 
 
 conv_yx.launches = 0
+
+
+def _launch_axis(name: str, u: torch.Tensor, taps) -> torch.Tensor:
+    """Launch the single-axis tile kernel ``mad_<name>`` (B10) on a CUDA
+    tensor."""
+    _check(name, u)
+    host = _host_taps(taps, u.dtype)
+    out = torch.empty_like(u)
+    err = kernel(f"mad_{name}", u.dtype)(
+        u.data_ptr(), out.data_ptr(), *u.shape, host.ctypes.data,
+        len(np.asarray(taps)), stream_of(u),
+    )
+    check_launch(err, name)
+    return out
+
+
+def conv_y(u: torch.Tensor, taps) -> torch.Tensor:
+    """Edge-replicated correlation along axis 1, rounded to the storage
+    dtype."""
+    if u.device.type == "cpu":
+        return conv_y_plain(u, taps)
+    out = _launch_axis("conv_y", u, taps)
+    conv_y.launches += 1
+    return out
+
+
+conv_y.launches = 0
+
+
+def conv_x(u: torch.Tensor, taps) -> torch.Tensor:
+    """Edge-replicated correlation along axis 2, rounded to the storage
+    dtype."""
+    if u.device.type == "cpu":
+        return conv_x_plain(u, taps)
+    out = _launch_axis("conv_x", u, taps)
+    conv_x.launches += 1
+    return out
+
+
+conv_x.launches = 0

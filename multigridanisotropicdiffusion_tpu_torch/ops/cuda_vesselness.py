@@ -1,10 +1,13 @@
-"""The VED vesselness pipeline's fused per-voxel kernels
-(``csrc/vesselness.cu``): the per-scale FD Hessian + eigenvalues +
-vesselness + running best-select (B8) and the final tensor assembly (B9).
+"""The VED vesselness pipeline's per-voxel kernels (``csrc/vesselness.cu``):
+the per-scale FD Hessian + eigenvalues + vesselness + running best-select
+(B8), the final tensor assembly (B9), and the standalone FD Hessian of
+``hessian(mode='smooth_fd')`` (B11), which shares B8's FD stencil.
 
 Counterpart of ``multigridanisotropicdiffusion_tpu.ops.pallas_vesselness``
-(``pallas_fd_vesselness``, ``pallas_tensor_assembly``), with ``acos`` where
-the TPU kernels use ``acos_poly`` and without their shape gates.
+(``pallas_fd_vesselness``, ``pallas_tensor_assembly``) and of
+``pallas_fd_hessian`` in ``multigridanisotropicdiffusion_tpu.ops.pallas_conv``,
+with ``acos`` where the TPU kernels use ``acos_poly`` and without their
+shape gates.
 
 The plain versions take the formulas from ``models/ved.py`` as the JAX
 kernels do (``measure_fn``, ``assemble_fn``), so each formula has one source
@@ -14,8 +17,9 @@ The running best is ``(resp, h)``: the response ``(Z, Y, X)`` in the compute
 dtype (float32 for float32 and bf16 storage, float64 for float64) and the
 winning Hessian ``(6, Z, Y, X)`` in the storage dtype.  :func:`fd_vesselness`
 updates it IN PLACE on every device (the select is pointwise, so the kernel
-can) and returns it.  ``fd_vesselness.launches`` and
-``tensor_assembly.launches`` count kernel launches.
+can) and returns it.  ``fd_vesselness.launches``,
+``tensor_assembly.launches`` and ``fd_hessian.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -48,6 +52,12 @@ def fd_vesselness_plain(us: torch.Tensor, facs, params, best: Best | None,
     return torch.where(better, resp, best_resp), torch.where(better, h_store, best_h)
 
 
+def fd_hessian_plain(us: torch.Tensor, facs) -> torch.Tensor:
+    """Plain version of the B11 kernel: the six FD planes of the valid-z
+    smoothed field ``(Z + 2, Y, X)``, rounded to its storage dtype."""
+    return fd_planes(us, facs).to(us.dtype)
+
+
 def tensor_assembly_plain(resp: torch.Tensor, h: torch.Tensor,
                           assemble_fn) -> torch.Tensor:
     """Plain version of the B9 kernel: ``assemble_fn(resp, h)`` on the
@@ -55,14 +65,21 @@ def tensor_assembly_plain(resp: torch.Tensor, h: torch.Tensor,
     return assemble_fn(resp, h.to(resp.dtype))
 
 
-def _check_fdv(us: torch.Tensor, best: Best | None) -> Tuple[int, ...]:
-    require_cuda("fd_vesselness", us)
+def _fd_output_shape(name: str, us: torch.Tensor) -> Tuple[int, ...]:
+    """The ``(Z, Y, X)`` output of an FD kernel on the CUDA field ``us``
+    ``(Z + 2, Y, X)``; raises on what the kernels do not take."""
+    require_cuda(name, us)
     if us.dim() != 3 or us.shape[0] < 3:
-        raise ValueError(f"fd_vesselness: needs a (Z + 2, Y, X) field, got "
+        raise ValueError(f"{name}: needs a (Z + 2, Y, X) field, got "
                          f"{tuple(us.shape)}")
     shape = (us.shape[0] - 2, *us.shape[1:])
     if shape[0] > 65535:
-        raise ValueError(f"fd_vesselness: Z of {shape} exceeds the launch limit")
+        raise ValueError(f"{name}: Z of {shape} exceeds the launch limit")
+    return shape
+
+
+def _check_fdv(us: torch.Tensor, best: Best | None) -> Tuple[int, ...]:
+    shape = _fd_output_shape("fd_vesselness", us)
     if best is not None:
         resp, h = best
         require_cuda("fd_vesselness", h, us)
@@ -140,3 +157,23 @@ def tensor_assembly(resp: torch.Tensor, h: torch.Tensor, epsilon: float,
 
 
 tensor_assembly.launches = 0
+
+
+def fd_hessian(us: torch.Tensor, facs) -> torch.Tensor:
+    """The ``(6, Z, Y, X)`` central-difference Hessian of a valid-z smoothed
+    field ``(Z + 2, Y, X)`` (1-plane z halo; y and x replicate their edges),
+    in its storage dtype.  ``facs``: ``hessian.fd_factors``."""
+    if us.device.type == "cpu":
+        return fd_hessian_plain(us, facs)
+    shape = _fd_output_shape("fd_hessian", us)
+    out = torch.empty((6, *shape), dtype=us.dtype, device=us.device)
+    err = kernel("mad_fd_hessian", us.dtype)(
+        us.data_ptr(), out.data_ptr(), *shape, *(float(f) for f in facs),
+        stream_of(us),
+    )
+    check_launch(err, "fd_hessian")
+    fd_hessian.launches += 1
+    return out
+
+
+fd_hessian.launches = 0

@@ -19,7 +19,9 @@ every row exactly, ``w_phase[J] = A_c[J, O]`` with ``O`` the offset in
 ``[-r, r]`` for which ``J + O`` has that phase.  Out-of-range couplings meet
 no comb point, so border rows come out right with no special cases.  The
 probes run in batches of :data:`PROBE_BATCH` along a leading axis (the JAX
-package maps them with ``lax.map``), through the plain transfers.
+package maps them with ``lax.map``), through the plain transfers.  A
+matrix-free fine operator has no planes: it is always probed, through its
+own ``apply``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from ..core.grids import CELL
 from ..core.stencil import StencilOperator, stencil_offsets
 from .compressed import CompressedDCAOperator
+from .matfree import MatrixFreeDCAOperator
 from .transfer import coarse_size, prolong_plain, restrict_plain
 
 #: probes per batch: bounds the probe memory at batch * fine volume.
@@ -83,6 +86,17 @@ class _SpatialPart:
         self._op = op
         self.ndim = op.ndim
         self.shape = op.shape
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        return v - self._op.apply(v)
+
+
+def _matrix_free(op) -> MatrixFreeDCAOperator | None:
+    """The matrix-free operator behind ``op`` (itself or its spatial-part
+    view), or None: it has no plane form, so it is probed through its own
+    ``apply``, as the JAX package probes it."""
+    inner = op._op if isinstance(op, _SpatialPart) else op
+    return inner if isinstance(inner, MatrixFreeDCAOperator) else None
 
 
 def plane_getter(op):
@@ -185,6 +199,8 @@ def prune_stored_operator(op: StencilOperator, tol: float) -> StencilOperator:
 
 def _resolve_method(fine_op, method: str) -> str:
     if method == "auto":
+        if _matrix_free(fine_op) is not None:
+            return "probe"
         voxels = 1
         for s in fine_op.shape:
             voxels *= s
@@ -207,7 +223,8 @@ def assemble_galerkin_parabolic(fine_op, centering: Sequence[str],
     the identity exact on every level keeps row sums 1 and the smoothers
     contractive.
 
-    ``fine_op``: a stored or compressed operator; returns a stored one.
+    ``fine_op``: a stored, compressed or matrix-free operator; returns a
+    stored one.
     ``method``: 'probe', 'direct' or 'auto' (direct from
     :data:`DIRECT_MIN_FINE_VOXELS` fine voxels).  ``collapse`` lumps the
     coarsened ``dt*L`` onto radius 1 (:func:`collapse_to_radius1`) before
@@ -241,18 +258,28 @@ def assemble_galerkin(fine_op, centering: Sequence[str],
     ndim = fine_op.ndim
     fine_shape = tuple(fine_op.shape)
     coarse_shape = tuple(coarse_size(s, c) for s, c in zip(fine_shape, centering))
-    fine_offsets, get = plane_getter(fine_op)
+    matfree = _matrix_free(fine_op)
+    fine_offsets, get = (matfree.offsets, None) if matfree else plane_getter(fine_op)
     offsets, radii = galerkin_offsets(centering, _per_dim_radii(fine_offsets))
     offsets = _structural_offsets(centering, fine_offsets, radii)
 
     if _resolve_method(fine_op, method) == "direct":
+        if matfree:
+            raise TypeError("the matrix-free operator has no plane form: it is probed")
         from .galerkin_direct import assemble_galerkin_direct
 
         return assemble_galerkin_direct(fine_offsets, get, tuple(centering),
                                         offsets, radii)
 
-    planes = [get(k) for k in range(len(fine_offsets))]
-    dtype, device = planes[0].dtype, planes[0].device
+    if matfree:
+        apply = fine_op.apply
+        dtype, device = matfree.tensor.dtype, matfree.tensor.device
+    else:
+        planes = [get(k) for k in range(len(fine_offsets))]
+        dtype, device = planes[0].dtype, planes[0].device
+
+        def apply(v):
+            return _contract_batched(fine_offsets, planes, v)
     moduli = tuple(2 * r + 1 for r in radii)
     coords = [
         torch.arange(s, device=device).reshape([-1 if d == i else 1 for i in range(ndim)])
@@ -273,9 +300,7 @@ def assemble_galerkin(fine_op, centering: Sequence[str],
                 comb = hit if comb is None else comb & hit
             combs.append(comb.expand(coarse_shape))
         v = torch.stack(combs).to(dtype)
-        w_parts.append(restrict_plain(
-            _contract_batched(fine_offsets, planes, prolong_plain(v, centering)),
-            centering))
+        w_parts.append(restrict_plain(apply(prolong_plain(v, centering)), centering))
     w_stack = torch.cat(w_parts)  # (prod(m), *coarse_shape)
 
     # gather planes: plane_O[J] = W[phase(J + O)][J]

@@ -7,13 +7,13 @@ the scale normalization ``sigma**2``.  Derivatives are in physical
 coordinates.  A Hessian is one ``(6, *shape)`` stack in symfield order.
 
 ``use_kernels`` stands for the JAX package's ``allow_pallas`` together with
-its ``default_backend() == "tpu"`` gates: the smoothing of the ``smooth_fd``
-mode goes to the B6 (z, valid mode) and B7 (fused y+x) kernels of
-:mod:`.cuda_conv`, whose wrappers run their plain versions on a CPU tensor.
-The per-axis kernels of ``gaussian_derivative`` mode (ROADMAP B10) and the
-standalone FD-Hessian kernel (B11) are not ported: with ``use_kernels`` on a
-CUDA tensor those passes raise ``NotImplementedError``; with
-``use_kernels=False`` they run their plain code on any device.
+its ``default_backend() == "tpu"`` gates: on a 3D field every 1-D pass goes
+to a kernel of :mod:`.cuda_conv` (z to B6, y and x to B10; the ``smooth_fd``
+smoothing fuses y and x into B7), and the ``smooth_fd`` finite differences
+to B11 (:mod:`.cuda_vesselness`).  The wrappers run their plain versions on
+a CPU tensor.  ``gaussian_derivative`` mode shares the z passes explicitly
+(3 per scale, then 6 y and 6 x passes), as XLA's common-subexpression
+elimination does for the JAX package under ``jit``.
 """
 
 from __future__ import annotations
@@ -63,25 +63,16 @@ def kernel_radius(sigma: float, spacing: float, max_radius: int = 64) -> int:
     return max(2, min(max_radius, int(math.ceil(4.0 * sigma / spacing))))
 
 
-def _refuse_on_cuda(u: torch.Tensor, use_kernels: bool, what: str,
-                    item: str) -> None:
-    if use_kernels and u.device.type == "cuda":
-        raise NotImplementedError(
-            f"{what} has no CUDA kernel yet (ROADMAP {item}); use "
-            "hessian_mode='smooth_fd' through the VED pipeline, or use_kernels=False"
-        )
-
-
 def _conv_axis(u: torch.Tensor, kernel, axis: int, valid: bool = False,
                use_kernels: bool = False) -> torch.Tensor:
     """Correlate ``u`` with a 1-D kernel along ``axis``: edge-replicated and
     shape-preserving, or (``valid``) over supplied halos, 2r shorter.  With
-    ``use_kernels``, axis 0 goes to the B6 kernel; the y and x axes have no
-    kernel of their own (B10)."""
-    if use_kernels and u.dim() == 3:
+    ``use_kernels`` on a 3D field, the pass goes to its kernel (valid mode
+    along z only, as the JAX package routes it)."""
+    if use_kernels and u.dim() == 3 and (axis == 0 or not valid):
         if axis == 0:
             return cuda_conv.conv_z(u, kernel, valid=valid)
-        _refuse_on_cuda(u, use_kernels, f"the convolution along axis {axis}", "B10")
+        return (cuda_conv.conv_y if axis == 1 else cuda_conv.conv_x)(u, kernel)
     return cuda_conv.conv_axis_plain(u, kernel, axis, valid)
 
 
@@ -111,8 +102,6 @@ def hessian(
                                   z_valid_radius, use_kernels)
     if mode != "gaussian_derivative":
         raise ValueError(f"unknown hessian mode: {mode!r}")
-    _refuse_on_cuda(u, use_kernels and ndim == 3,
-                    "hessian(mode='gaussian_derivative')", "B10")
     kernels = [gaussian_kernels_1d(float(sigma), float(h)) for h in spacing]
     if z_valid_radius is not None:
         r = (len(kernels[0][0]) - 1) // 2
@@ -124,11 +113,19 @@ def hessian(
         extra = z_valid_radius - r
         kernels[0] = tuple(np.pad(k, (extra, extra)) for k in kernels[0])
 
+    # the axis-0 pass of each derivative order is shared by the components
+    # that start with it: 3 of them instead of 6 in 3D
+    first_pass = {}
+
     def separable(orders):
-        out = u
-        for d, o in enumerate(orders):
-            out = _conv_axis(out, kernels[d][o], d,
-                             valid=(d == 0 and z_valid_radius is not None))
+        o = orders[0]
+        if o not in first_pass:
+            first_pass[o] = _conv_axis(u, kernels[0][o], 0,
+                                       valid=z_valid_radius is not None,
+                                       use_kernels=use_kernels)
+        out = first_pass[o]
+        for d in range(1, ndim):
+            out = _conv_axis(out, kernels[d][orders[d]], d, use_kernels=use_kernels)
         return out
 
     norm = float(sigma) ** 2 if normalize_across_scale else 1.0
@@ -245,11 +242,13 @@ def _hessian_smooth_fd(
     """Smooth-then-finite-difference Hessian (see :func:`hessian`), in the
     field's storage dtype."""
     us = smoothed_field_valid_z(u, sigma, spacing, z_valid_radius, use_kernels)
-    _refuse_on_cuda(us, use_kernels and us.dim() == 3,
-                    "the standalone finite-difference Hessian pass", "B11")
     ndim = u.dim()
     norm = float(sigma) ** 2 if normalize_across_scale else 1.0
     facs = [norm / (float(spacing[i]) ** 2) if i == j
             else norm / (4.0 * float(spacing[i]) * float(spacing[j]))
             for i, j in sym_pairs(ndim)]
+    if use_kernels and ndim == 3:
+        from .cuda_vesselness import fd_hessian  # imports this module
+
+        return fd_hessian(us, facs)
     return fd_planes(us, facs).to(us.dtype)

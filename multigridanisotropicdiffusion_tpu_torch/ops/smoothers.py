@@ -1,4 +1,5 @@
-"""Smoothers for the multigrid cycle: weighted Jacobi and red-black Gauss-Seidel.
+"""Smoothers for the multigrid cycle: weighted Jacobi, red-black Gauss-Seidel
+and Chebyshev.
 
 Counterpart of ``multigridanisotropicdiffusion_tpu.ops.smoothers``.  The
 reference's lexicographic Gauss-Seidel is sequential, so Gauss-Seidel here is
@@ -14,7 +15,8 @@ operator that the JAX package sends to its Pallas kernels
 operator to :mod:`.cuda_smoothers`, 3D stored operators to
 :mod:`.cuda_stencil_stored`, 2D operators to :mod:`.cuda_stencil2d`.  For a
 CPU tensor those take their plain versions; for a CUDA tensor they launch
-the kernel or raise.  The Chebyshev smoother is not ported yet (ROADMAP A10).
+the kernel or raise.  The Chebyshev smoother has no kernel, in the JAX
+package or here: it runs as plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def make_smoother(kind: str, omega: float = DEFAULT_JACOBI_WEIGHT,
                   use_kernels: bool = False):
     """Return ``smooth(op, x, b) -> x'`` for the named smoother.
 
-    ``kind``: 'gauss_seidel' (red-black) or 'weighted_jacobi'.
+    ``kind``: 'gauss_seidel' (red-black), 'weighted_jacobi' or 'chebyshev'.
     ``use_kernels``: the GS sweeps of every operator with a stencil kernel
     (:func:`has_kernel`) go through it.  An operator the JAX package never
     sends to Pallas (the radius-2 levels of a 2D exact Galerkin hierarchy)
@@ -123,7 +125,7 @@ def make_smoother(kind: str, omega: float = DEFAULT_JACOBI_WEIGHT,
     if kind in _JACOBI:
         return functools.partial(jacobi_sweep, omega=omega)
     if kind in _CHEBYSHEV:
-        raise NotImplementedError("the Chebyshev smoother is not ported yet (ROADMAP A10)")
+        return chebyshev_smoother
     raise ValueError(f"unknown smoother kind: {kind!r}")
 
 
@@ -140,3 +142,39 @@ def make_residual(use_kernels: bool = False):
         return residual(op, x, b)
 
     return resid
+
+
+#: Chebyshev smoother defaults: polynomial degree per smooth() call, and the
+#: targeted upper spectral fraction [lmax/ratio, lmax] of D^-1 A.
+CHEBYSHEV_DEGREE = 3
+CHEBYSHEV_EIG_RATIO = 8.0
+
+
+def chebyshev_smoother(op, x: torch.Tensor, b: torch.Tensor,
+                       degree: int = CHEBYSHEV_DEGREE,
+                       eig_ratio: float = CHEBYSHEV_EIG_RATIO) -> torch.Tensor:
+    """Chebyshev polynomial smoother on the Jacobi-preconditioned operator:
+    a degree-``degree`` polynomial in ``D^-1 A`` that damps the band
+    ``[lmax/eig_ratio, lmax]``, with ``lmax`` bounded per call by Gershgorin
+    (``max(1 + rowsum|offdiag|/diag)``, a device scalar: no host sync).  No
+    reference counterpart; the JAX package's smoother of the same name, in
+    the compute dtype."""
+    cd = compute_dtype(x.dtype)
+    xc, bc = x.to(cd), b.to(cd)
+    diag = op.diag.to(cd)
+    lmax = torch.max(1.0 + op.offdiag_abs_rowsum().to(cd) / diag)
+    lmin = lmax / eig_ratio
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+
+    r = bc - op.apply(xc)
+    d = (r / diag) / theta
+    rho = 1.0 / sigma
+    for _ in range(degree):
+        xc = xc + d
+        r = r - op.apply(d)
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * (r / diag)
+        rho = rho_new
+    return (xc + d).to(x.dtype)

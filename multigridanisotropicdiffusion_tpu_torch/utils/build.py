@@ -62,10 +62,15 @@ SIGNATURES = {
     "mad_conv_z": (_P, _P, _I, _I, _I, _I, _P, _I, ctypes.c_int, _STREAM),
     # in, out, nz, ny, nx, host taps y, taps y, host taps x, taps x, stream
     "mad_conv_yx": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _STREAM),
+    # in, out, nz, ny, nx, host taps, taps, stream
+    "mad_conv_y": (_P, _P, _I, _I, _I, _P, _I, _STREAM),
+    "mad_conv_x": (_P, _P, _I, _I, _I, _P, _I, _STREAM),
     # us, resp, h, nz, ny, nx, facs (6), 2 alpha^2, 2 beta^2, 2 gamma^2,
     # first, stream
     "mad_fd_vesselness": (_P, _P, _P, _I, _I, _I) + (_D,) * 9
     + (ctypes.c_int, _STREAM),
+    # us, h, nz, ny, nx, facs (6), stream
+    "mad_fd_hessian": (_P, _P, _I, _I, _I) + (_D,) * 6 + (_STREAM,),
     # resp, h, out, voxels, 1/sensitivity, epsilon - 1, omega - epsilon, stream
     "mad_tensor_assembly": (_P, _P, _P, _I, _D, _D, _D, _STREAM),
     # planes, x, b, out, nz, ny, nx, host offsets (K, 3) int32, K, centre,

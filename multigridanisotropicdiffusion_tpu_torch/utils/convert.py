@@ -14,10 +14,11 @@ import numpy as np
 import torch
 
 from ..core.stencil import StencilOperator
-from ..models.mad import Hierarchy
+from ..models.mad import Hierarchy, MADConfig
 from ..models.ved import VEDConfig
 from ..ops.coarse import CoarseSolver
 from ..ops.compressed import CompressedDCAOperator
+from ..ops.matfree import MatrixFreeDCAOperator
 
 
 def _t(a, dtype=None, device=None) -> torch.Tensor:
@@ -32,8 +33,12 @@ def tensor_from_numpy(planes, dtype=None, device=None) -> torch.Tensor:
 
 def operator_from_numpy(op, dtype=None, device=None):
     """A JAX ``CompressedDCAOperator`` (``face_p``/``face_m``/``mixed``/
-    ``diag_plane``) or ``StencilOperator`` (``coeffs``/``offsets``) with
-    numpy leaves -> the port's operator."""
+    ``diag_plane``), ``MatrixFreeDCAOperator`` (``tensor`` planes,
+    ``spacing``, ``time_step``) or ``StencilOperator`` (``coeffs``/
+    ``offsets``) with numpy leaves -> the port's operator."""
+    if hasattr(op, "time_step"):
+        return MatrixFreeDCAOperator(tensor_from_numpy(op.tensor, dtype, device),
+                                     op.spacing, op.time_step)
     if hasattr(op, "face_p"):
         ndim = len(op.face_p)
         planes = []
@@ -54,6 +59,22 @@ def solver_from_numpy(solver, dtype=None, device=None) -> CoarseSolver:
         inv_ok=bool(np.asarray(solver.inv_ok)),
         shape=tuple(solver.shape),
     )
+
+
+def mad_config_from_jax(cfg) -> MADConfig:
+    """A JAX ``MADConfig`` -> the port's, field by field (read by attribute):
+    ``use_pallas`` becomes ``use_kernels``, the deprecated ``matrix_free``
+    alias becomes ``operator_repr='matrix_free'``, and ``halo`` has no
+    counterpart yet (ROADMAP A11) and is dropped."""
+    kw = {}
+    for f in dataclasses.fields(MADConfig):
+        if f.name == "use_kernels":
+            kw[f.name] = cfg.use_pallas
+        elif f.name == "operator_repr":
+            kw[f.name] = "matrix_free" if cfg.matrix_free else cfg.operator_repr
+        else:
+            kw[f.name] = getattr(cfg, f.name)
+    return MADConfig(**kw)
 
 
 def ved_config_from_jax(cfg) -> VEDConfig:

@@ -2,7 +2,9 @@
 
     python -m multigridanisotropicdiffusion_tpu_torch.utils.profile_ved
 
-Runs ``ved(vol, config=VEDConfig.cuda(), device="cuda")`` on the seeded
+For each Hessian mode, ``smooth_fd`` (``VEDConfig.cuda()``) and then the
+reference-faithful ``gaussian_derivative``, runs ``ved(vol,
+config=VEDConfig.cuda(hessian_mode=...), device="cuda")`` on the seeded
 512^3 tube phantom (``utils.phantom``) once to warm up, then once under
 ``torch.profiler``, and prints the card's name and power limit, the wall
 time, the device time (the sum of the kernels' times; one stream, so they
@@ -22,8 +24,9 @@ import torch
 SHAPE = (512, 512, 512)
 #: kernel-name fragments of each group
 GROUPS = {
-    "pipeline (B6-B9)": ("conv_z_kernel", "conv_yx_kernel", "fd_vesselness_kernel",
-                         "tensor_assembly_kernel"),
+    "pipeline kernels (B6-B11)": ("conv_z_kernel", "conv_tile_kernel",
+                                  "fd_vesselness_kernel", "tensor_assembly_kernel",
+                                  "fd_hessian_kernel"),
     "solve (B1-B5)": ("stencil_kernel", "transfer_kernel", "assemble_kernel"),
 }
 
@@ -39,8 +42,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
     from ..models.ved import VEDConfig, ved
     from .phantom import tube_phantom
 
@@ -48,7 +49,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=False).stdout.strip())
     vol = tube_phantom(SHAPE, torch.Generator(device="cuda").manual_seed(0))
-    cfg = VEDConfig.cuda()
+    for mode in ("smooth_fd", "gaussian_derivative"):
+        if profile_one(vol, VEDConfig.cuda(hessian_mode=mode), ved):
+            return 1
+    return 0
+
+
+def profile_one(vol, cfg, ved) -> int:
+    """One warm-up call, one profiled call and its breakdown; 1 if the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     ved(vol, config=cfg, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -64,7 +75,8 @@ def main() -> int:
         print("the profiler saw no device time: time with CUDA events instead",
               file=sys.stderr)
         return 1
-    print(f"VED {SHAPE} float32, VEDConfig.cuda(): wall {wall:.4f} s, device "
+    print(f"VED {SHAPE} float32, VEDConfig.cuda(hessian_mode={cfg.hessian_mode!r}): "
+          f"wall {wall:.4f} s, device "
           f"{device:.4f} s, device idle {max(0.0, 1 - device / wall):.1%}")
     grouped = {g: 0.0 for g in (*GROUPS, "other")}
     for e in kernels:

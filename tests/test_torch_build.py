@@ -41,6 +41,16 @@ def test_ctypes_signatures_match_the_c_entry_points():
         assert list(argtypes) == entries[name], name
 
 
+@pytest.mark.parametrize("name,source", [("mad_conv_y", "conv.cu"), ("mad_conv_x", "conv.cu"),
+                                         ("mad_fd_hessian", "vesselness.cu")])
+def test_the_b10_b11_entry_points_are_declared(name, source):
+    """The per-axis convolutions (B10) and the standalone FD Hessian (B11):
+    declared in their sources and given ctypes argument lists."""
+    text = (build.CSRC_DIR / source).read_text()
+    assert f'extern "C" int {name}_##SUF(' in text
+    assert _entry_points()[name] == list(build.SIGNATURES[name])
+
+
 def test_every_storage_type_is_instantiated():
     text = (build.CSRC_DIR / "common.cuh").read_text()
     suffixes = re.findall(r"^\s*MACRO\((\w+), \w+\)", text, re.MULTILINE)

@@ -104,10 +104,10 @@ def test_import_leaves_jax_out():
         "import multigridanisotropicdiffusion_tpu_torch as m\n"
         "from multigridanisotropicdiffusion_tpu_torch.ops import "
         "cuda_smoothers, cuda_transfer, cuda_assemble, cuda_conv, "
-        "cuda_vesselness, eigen3, hessian\n"
-        "from multigridanisotropicdiffusion_tpu_torch.models import ved\n"
+        "cuda_vesselness, eigen3, hessian, matfree, smoothers\n"
+        "from multigridanisotropicdiffusion_tpu_torch.models import ved, trace, filters\n"
         "from multigridanisotropicdiffusion_tpu_torch.utils import build, compare, "
-        "convert, phantom, profile_ved\n"
+        "convert, phantom, profile_ved, benchlog, checkpoint, io, native, profiling\n"
         "assert m.mad_diffusion and m.MADConfig and m.MADResult\n"
         "assert m.ved and m.VEDConfig and m.VEDResult\n"
         "bad = [k for k in set(sys.modules) - before\n"

@@ -1,17 +1,16 @@
-"""The VED kernels (B6-B9) against their plain PyTorch versions on the card,
+"""The VED kernels (B6-B11) against their plain PyTorch versions on the card,
 and the VED pipeline through them.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_ved.py`` runs
-them on a machine with a card.  Tolerances: the convolutions sum their taps
-in another order than the plain versions (and contract into fused
-multiply-adds), so float64 1e-12 and float32 1e-5 of the largest reference
-value, bf16 one bf16 ulp of each value (f32 floor near zero).  B8 and B9
-round every operation as the plain versions do, so they agree to the last
-bits wherever the math library does; they are held to 1e-5 of the largest
-value (1e-12 in float64), except where two correct versions may legitimately
-part: a select decision at a near-tie (B8's Hessian planes) and a degenerate
-top eigenvalue (B9's eigenvector), both counted and bounded.
+them on a machine with a card.  Tolerances: every kernel rounds each
+operation as its plain version does (no fused multiply-adds), so they agree
+to the last bits wherever the math library does; they are held to float64
+1e-12 and float32 1e-5 of the largest reference value, bf16 one bf16 ulp of
+each value (f32 floor near zero), except where two correct versions may
+legitimately part: a select decision at a near-tie (B8's Hessian planes)
+and a degenerate top eigenvalue (B9's eigenvector), both counted and
+bounded.
 """
 
 import numpy as np
@@ -41,6 +40,8 @@ PARAMS = (0.5, 0.5, 5.0)
 TENSOR = (0.01, 5.0, 10.0)
 COUNTERS = (cuda_conv.conv_z, cuda_conv.conv_yx, cuda_vesselness.fd_vesselness,
             cuda_vesselness.tensor_assembly)
+#: the kernels of hessian(mode='gaussian_derivative') (B6, B10)
+GD_COUNTERS = (cuda_conv.conv_z, cuda_conv.conv_y, cuda_conv.conv_x)
 
 
 @pytest.fixture
@@ -96,6 +97,35 @@ def test_conv_kernels_match_plain(device, shape, sigma, spacing, dtype):
     tx = gaussian_kernels_1d(0.775, 1.0)[0]
     for a, b in ((ty, tx), (tx, ty)):
         _check(cuda_conv.conv_yx(u, a, b), cuda_conv.conv_yx_plain(u, a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape,sigma,spacing", [
+    ((37, 45, 51), 2.0, 1.0),      # odd shape, r = 8
+    ((20, 17, 33), 2.0, 0.25),     # r = 32
+    ((9, 70, 140), 16.0, 1.0),     # r = 64, the cap, wider than y
+])
+def test_conv_axis_kernels_match_plain(device, shape, sigma, spacing, dtype):
+    """B10: the single-axis y and x passes, each rounded at its store, for
+    every derivative order (g, g1, g2)."""
+    u = _volume(shape, device, dtype=dtype)
+    for taps in gaussian_kernels_1d(sigma, spacing):
+        _check(cuda_conv.conv_y(u, taps), cuda_conv.conv_y_plain(u, taps))
+        _check(cuda_conv.conv_x(u, taps), cuda_conv.conv_x_plain(u, taps))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(39, 45, 51), (12, 16, 128), (3, 1, 1)])
+def test_fd_hessian_matches_plain(device, shape, dtype):
+    """B11: the six FD planes of a valid-z smoothed field, rounded to the
+    storage dtype, y and x edge-replicated."""
+    us = _volume(shape, device, dtype=dtype)
+    facs = fd_factors(1.245, (1.0, 0.9, 1.1))
+    got = cuda_vesselness.fd_hessian(us, facs)
+    assert got.shape == (6, shape[0] - 2, *shape[1:]) and got.dtype == dtype
+    _check(got, cuda_vesselness.fd_hessian_plain(us, facs))
     torch.cuda.synchronize()
 
 
@@ -183,16 +213,33 @@ def test_nan_eigenvalues_match_plain(device):
     torch.testing.assert_close(t, t_p, rtol=0, atol=1e-6)
 
 
-def test_gaussian_derivative_refused_with_kernels(device):
-    u = torch.rand((8, 8, 8), device=device)
-    with pytest.raises(NotImplementedError, match="B10"):
-        hessian(u, 1.0, mode="gaussian_derivative", use_kernels=True)
-    with pytest.raises(NotImplementedError, match="B11"):
-        hessian(u, 1.0, mode="smooth_fd", use_kernels=True)
-    with pytest.raises(NotImplementedError, match="B10"):
-        ved(u, config=VEDConfig.cuda(hessian_mode="gaussian_derivative"),
-            device=device)
-    assert hessian(u, 1.0, mode="gaussian_derivative").shape == (6, 8, 8, 8)
+def test_gaussian_derivative_through_kernels(device):
+    """The reference-faithful Hessian launches B6 (3 shared z passes) and
+    B10 (6 y and 6 x passes) per scale, the standalone smooth_fd Hessian
+    B11 once; both match their plain paths, and so does the whole VED."""
+    u = _volume((24, 20, 18), device)
+    for f in GD_COUNTERS + (cuda_vesselness.fd_hessian,):
+        f.launches = 0
+    got = hessian(u, 1.0, (1.0, 0.9, 1.1), mode="gaussian_derivative", use_kernels=True)
+    assert [f.launches for f in GD_COUNTERS] == [3, 6, 6]
+    _check(got, hessian(u, 1.0, (1.0, 0.9, 1.1), mode="gaussian_derivative"))
+    got = hessian(u, 1.0, mode="smooth_fd", use_kernels=True)
+    assert cuda_vesselness.fd_hessian.launches == 1
+    _check(got, hessian(u, 1.0, mode="smooth_fd"))
+
+    vol = _volume((32, 36, 33), device)
+    kw = dict(scales=(0.775, 2.0), diffusion_iterations=2, pipeline_z_slab=8,
+              hessian_mode="gaussian_derivative")
+    for f in GD_COUNTERS:
+        f.launches = 0
+    res = ved(vol, config=VEDConfig.cuda(**kw), device=device)
+    # 4 slabs x 2 scales x (3 z, 6 y, 6 x)
+    assert [f.launches for f in GD_COUNTERS] == [24, 48, 48]
+    ref = ved(vol, config=VEDConfig.cuda(use_kernels=False, **kw), device=device)
+    for r in (res, ref):
+        assert bool((r.diffusion.final_residual <= 1e-6).all())
+    rel = ((res.output - ref.output).norm() / ref.output.norm()).item()
+    assert rel <= 1e-4
 
 
 def test_ved_through_kernels_matches_plain(device):

@@ -115,8 +115,11 @@ def test_hessian_matches_jax(mode, z_valid_radius):
 
 
 def test_hessian_refusals_apply_to_cuda_only():
-    """With use_kernels on a CPU tensor the passes without a kernel run their
-    plain code; the CUDA refusals are covered by tests/test_torch_cuda_ved.py."""
+    """With use_kernels on a CPU tensor every kernel wrapper (B6, B10, B11)
+    runs its plain version: the same result as use_kernels=False.  On the
+    card the same calls launch the kernels
+    (tests/test_torch_cuda_ved.py::test_gaussian_derivative_through_kernels);
+    only an unknown mode is refused."""
     u = torch.as_tensor(_field((6, 7, 8), 7))
     a = hessian.hessian(u, 1.0, mode="gaussian_derivative", use_kernels=True)
     b = hessian.hessian(u, 1.0, mode="gaussian_derivative")

@@ -147,8 +147,8 @@ def test_refusals(monkeypatch):
         ved(vol, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         ved(np.zeros((8, 8)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        VEDConfig(matrix_free=True)
+    # the matrix-free operator is ported: the VED flag maps to it
+    assert VEDConfig(matrix_free=True).mad_config().operator_repr == "matrix_free"
     with pytest.raises(ValueError, match="galerkin_variant"):
         VEDConfig(galerkin_variant="direct")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
