@@ -54,6 +54,9 @@ Phases, one line or more each; any failure exits non-zero:
    ``MADConfig.cuda(smoother="chebyshev")`` and ``mad_diffusion_verbose``
    with ``MADConfig.cuda(mixed_precision=False)``, each to 1e-6 and within
    1e-4 relative L2 of the compressed DCA solve; the trace's line count.
+   The compressed solve and the two kernel-less ones are each timed as a
+   first call, the setup alone and a warm solve; the trace as a first and a
+   second call, setup included.
 
 Phase 3 also holds B10 (``conv_y``, ``conv_x``: 512^3 float32 and bfloat16,
 (37, 45, 51), and r = 64 on (12, 150, 150)) and B11 (``fd_hessian``: the
@@ -673,12 +676,35 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     torch.cuda.empty_cache()
 
 
+def fd_weights(facs, dtype):
+    """The six central-difference stencils of ``fd_planes``, scaled by
+    ``facs``, as a ``(6, 1, 3, 3, 3)`` conv3d weight (offset d at index
+    1 + d)."""
+    import torch
+
+    w = torch.zeros((6, 1, 3, 3, 3), dtype=torch.float64)
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    for k, (f, (i, j)) in enumerate(zip(facs, pairs)):
+        if i == j:
+            terms = [((s, 0), c) for s, c in ((1, 1.0), (0, -2.0), (-1, 1.0))]
+        else:
+            terms = [((si, sj), float(si * sj)) for si in (1, -1) for sj in (1, -1)]
+        for (si, sj), c in terms:
+            idx = [1, 1, 1]
+            idx[i] += si
+            idx[j] += sj
+            w[(k, 0, *idx)] += c * f
+    return w.to(dtype=dtype, device="cuda")
+
+
 def check_axis_kernels(tag, u, spacing, errs, timings, work, timed_runs, sigma=2.0):
     """B10 and B11 on one volume ``u`` (storage dtype): ``conv_y`` and
     ``conv_x`` with sigma's second-derivative taps (the gaussian_derivative
     Hessian's passes, each rounded at its store), and ``fd_hessian`` on the
-    valid-z smoothed field (Z + 2 planes).  Library yardstick of B10:
-    replicate-pad, then ``F.conv3d`` with a one-axis kernel."""
+    valid-z smoothed field (Z + 2 planes).  Library yardsticks: for B10
+    replicate-pad, then ``F.conv3d`` with a one-axis kernel; for B11
+    replicate-pad y and x, then ``F.conv3d`` with the six 3x3x3 stencils
+    (checked against the plain version in float32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -708,13 +734,30 @@ def check_axis_kernels(tag, u, spacing, errs, timings, work, timed_runs, sigma=2
         work[key(name)] = (2 * u.numel() * item, 2 * int(np.count_nonzero(taps)) * u.numel())
     us = smoothed_field_valid_z(u, sigma, spacing, use_kernels=True)
     facs = fd_factors(sigma, spacing)
+    want = cuda_vesselness.fd_hessian_plain(us, facs)
     errs[key("fd_hessian")] = check(
         f"fd_hessian {suffix} {tag} (input {tuple(us.shape)})",
-        cuda_vesselness.fd_hessian(us, facs), cuda_vesselness.fd_hessian_plain(us, facs))
+        cuda_vesselness.fd_hessian(us, facs), want)
+    # library form: y and x replicate-padded, one conv3d with the six stencils
+    us5, w_fd = us[None, None], fd_weights(facs, u.dtype)
+
+    def library():
+        return F.conv3d(F.pad(us5, (1, 1, 1, 1, 0, 0), mode="replicate"), w_fd)[0]
+
+    if u.dtype == torch.float32:
+        # the conv sums the scaled terms where the plain version scales the
+        # sum, so its float32 error scales with the terms, not the result
+        err = (library() - want).abs().max().item()
+        terms = us.abs().max().item() * w_fd.abs().sum((1, 2, 3, 4)).max().item()
+        log(f"  fd_hessian library form {suffix} {tag}: max_abs_err={err:.3e}, "
+            f"largest sum of |terms| {terms:.3e}, tol=1e-05 x that")
+        if not err <= 1e-5 * terms:
+            fail(f"fd_hessian's library form {tag} is not the plain version's function")
+    del want
     record("fd_hessian", lambda: cuda_vesselness.fd_hessian(us, facs),
-           lambda: cuda_vesselness.fd_hessian_plain(us, facs))
+           lambda: cuda_vesselness.fd_hessian_plain(us, facs), library)
     work[key("fd_hessian")] = ((us.numel() + 6 * u.numel()) * item, OPS_FD_HESSIAN * u.numel())
-    del us, u5
+    del us, us5, u5
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -944,10 +987,16 @@ def phase_ved_gd(gen):
 def phase_kernel_less(gen):
     """The modules without kernels on the card at 256^3, phase 5's
     construction: the matrix-free operator, the Chebyshev smoother and the
-    verbose trace, each against the compressed DCA solve."""
+    verbose trace, each against the compressed DCA solve.  Each solve is
+    timed as in ``solve_pair``: the first call, then the setup alone and a
+    warm solve on that hierarchy; the trace, which builds its own, as a
+    first and a second call, setup included."""
     import torch
 
     from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+    from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
+    from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
     from multigridanisotropicdiffusion_tpu_torch.models.trace import mad_diffusion_verbose
 
     log("== phase 10: matrix-free operator, Chebyshev smoother and verbose trace at 256^3")
@@ -955,42 +1004,61 @@ def phase_kernel_less(gen):
     tensor = bench_tensor(shape, gen)
     b = torch.rand(shape, generator=gen, device="cuda") * 255.0
     kw = dict(time_step=DT, tolerance=1e-6)
-    ref = mad_diffusion(b, tensor, config=MADConfig.cuda(**kw), device="cuda").output
-    summary = []
+    summary, ref = [], None
 
-    def report(case, out, cycles, relres, seconds):
-        rel = ((out - ref).norm() / ref.norm()).item()
-        log(f"  {case}: {cycles} cycles, {seconds:.3f} s, relres {relres:.3e}, "
-            f"rel_l2 to the compressed DCA solve {rel:.3e} (bound 1e-4)")
+    def seconds_of(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def report(case, out, cycles, relres, times):
+        rel = 0.0 if ref is None else ((out - ref).norm() / ref.norm()).item()
+        log(f"  {case}: {cycles} cycles, " + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+            + f", relres {relres:.3e}, rel_l2 to the compressed DCA solve {rel:.3e} "
+            "(bound 1e-4)")
         if not (bool(torch.isfinite(out).all()) and relres <= 1e-6 and cycles < 100
                 and rel <= 1e-4):
             fail(f"{case} is off")
-        summary.append(dict(case=case, cycles=cycles, seconds=seconds, relres=relres,
-                            rel_l2_vs_compressed=rel))
+        summary.append(dict(case=case, cycles=cycles, relres=relres,
+                            rel_l2_vs_compressed=rel, **times))
 
-    for case, cfg in (("matrix_free", MADConfig.cuda(operator_repr="matrix_free", **kw)),
+    for case, cfg in (("compressed", MADConfig.cuda(**kw)),
+                      ("matrix_free", MADConfig.cuda(operator_repr="matrix_free", **kw)),
                       ("chebyshev", MADConfig.cuda(smoother="chebyshev", **kw))):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = mad_diffusion(b, tensor, config=cfg, device="cuda")
-        torch.cuda.synchronize()
+        res, first_s = seconds_of(lambda: mad_diffusion(b, tensor, config=cfg, device="cuda"))
+        hier, setup_s = seconds_of(lambda: build_hierarchy(
+            as_sym_planes(tensor, shape, dtype=b.dtype, device="cuda"),
+            build_level_descriptors(shape), cfg.time_step, cfg.coarse_operator,
+            cfg.operator_repr, cfg.use_kernels, cfg.galerkin_variant))
+        warm, solve_s = seconds_of(lambda: mad_diffusion(b, tensor, config=cfg, device="cuda",
+                                                         hierarchy=hier))
+        again = ((warm.output - res.output).norm() / res.output.norm()).item()
+        if not (again <= 1e-6 and int(warm.num_cycles[0]) == int(res.num_cycles[0])):
+            fail(f"{case}: the warm solve differs from the first call ({again:.3e})")
         report(f"MADConfig.cuda({case})", res.output, int(res.num_cycles[0]),
-               float(res.final_residual[0]), time.perf_counter() - t0)
-        del res
+               float(res.final_residual[0]),
+               dict(first_s=first_s, setup_s=setup_s, warm_solve_s=solve_s))
+        if ref is None:
+            ref = res.output
+        del res, hier, warm
     lines = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out, _ = mad_diffusion_verbose(b, tensor, config=MADConfig.cuda(False, **kw),
-                                   print_fn=lines.append, device="cuda")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+
+    def trace():
+        lines.clear()
+        return mad_diffusion_verbose(b, tensor, config=MADConfig.cuda(False, **kw),
+                                     print_fn=lines.append, device="cuda")[0]
+
+    _, first_s = seconds_of(trace)
+    out, second_s = seconds_of(trace)
     cycles = sum(line.startswith("|--- VCycle") for line in lines)
     log(f"  mad_diffusion_verbose: {len(lines)} lines, the first cycle's:")
     for line in lines[:lines.index("|--- VCycle n. 2 ---|") if cycles > 1 else None]:
         log(f"    {line}")
     # the last line, level 0's last smoothing, is the solve's relative residual
     report("mad_diffusion_verbose (mixed_precision=False)", out, cycles,
-           float(lines[-1].split("= ")[1]), seconds)
+           float(lines[-1].split("= ")[1]), dict(first_s=first_s, second_s=second_s))
     summary[-1]["trace_lines"] = len(lines)
     del tensor, b, ref, out
     torch.cuda.empty_cache()

@@ -178,11 +178,38 @@ def test_coarse_solver_matches_jax(force_fallback):
     ],
     ids=["galerkin", "matrix_free", "chebyshev_config", "chebyshev_smoother"],
 )
-def test_unported_features_refuse(make, check):
-    """The features once refused here (ROADMAP A10) are ported and construct;
-    what stays unported, distribution (A11), still refuses."""
+def test_a10_features_construct(make, check):
+    """The matrix-free operator and the Chebyshev smoother (ROADMAP A10)
+    are ported and construct."""
     assert check(make())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mad_diffusion(np.zeros((8, 8)), np.zeros((3, 8, 8)), mesh=object(), device="cpu")
+
+
+def _refusals():
+    from multigridanisotropicdiffusion_tpu_torch.models.filters import (
+        MultigridAnisotropicDiffusionImageFilter,
+        VEDMultigridImageFilter,
+    )
+    from multigridanisotropicdiffusion_tpu_torch.models.trace import mad_diffusion_verbose
+    from multigridanisotropicdiffusion_tpu_torch.models.ved import ved
+
+    img, planes = np.zeros((8, 8)), np.zeros((3, 8, 8))
+    return {
+        "mad_mesh": lambda: mad_diffusion(img, planes, mesh=object(), device="cpu"),
+        "ved_mesh": lambda: ved(np.zeros((8, 8, 8)), mesh=object(), device="cpu"),
+        "trace_mesh": lambda: mad_diffusion_verbose(img, planes, mesh=object(),
+                                                    device="cpu"),
+        "mad_filter_mesh": lambda: MultigridAnisotropicDiffusionImageFilter(
+            device="cpu").set_mesh(object()),
+        "ved_filter_mesh": lambda: VEDMultigridImageFilter(device="cpu").set_mesh(object()),
+    }
+
+
+@pytest.mark.parametrize(
+    "case", ["mad_mesh", "ved_mesh", "trace_mesh", "mad_filter_mesh", "ved_filter_mesh"])
+def test_unported_features_refuse(case):
+    """Distribution (ROADMAP A11) is not ported: every entry point that takes
+    a mesh refuses it; an unknown operator representation is an error."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        _refusals()[case]()
     with pytest.raises(ValueError, match="operator_repr"):
         MADConfig(operator_repr="implicit")
