@@ -56,9 +56,26 @@ Phases, one line or more each; any failure exits non-zero:
    1e-4 relative L2 of the compressed DCA solve; the trace's line count.
    The compressed solve and the two kernel-less ones are each timed as a
    first call, the setup alone and a warm solve; the trace as a first and a
-   second call, setup included.
+   second call, setup included;
+11. distributed main path, gloo ranks spawned after phase 2 built the
+   kernels and sharing cuda:0 (faces staged through the host: these numbers
+   measure correctness and overheads, not NVLink scaling).  On 2 ranks, mesh
+   (2, 1, 1): one B14 red-black sweep and residual on the 512^3 compressed
+   operator against B1/B2 on the whole volume (1e-5 of max|ref|); phase 5's
+   512^3 ``mad_diffusion`` with ``MADConfig.cuda()``; phase 6's 512^3
+   ``ved(VEDConfig.cuda())``.  On 8 ranks, mesh (2, 2, 2): the (254, 256,
+   256) solve (every axis split, odd-origin blocks, a padded level 1), with
+   the compressed DCA operator and with collapsed Galerkin levels (B14's
+   stored form).  Each run against the single-device kernel run on rank 0:
+   rel L2 <= 1e-4, cycles within one, every step at relres <= 1e-6, VED's
+   tube checks; B14 launched on every rank; each rank's first-call and warm
+   seconds and peak device memory on its own line.
 
-Phase 3 also holds B10 (``conv_y``, ``conv_x``: 512^3 float32 and bfloat16,
+Phase 3 also holds B14, the shard-local stencil kernel (compressed:
+``halfsweep_local``/``cuda_residual_local`` on random planes non-zero on
+every border, one rank's (256, 512, 512) block of the 512^3 level and a
+(37, 45, 51) block; stored, through B12's kernel, on a (128, 256, 256) block
+of the 512^3 collapsed level 1), B10 (``conv_y``, ``conv_x``: 512^3 float32 and bfloat16,
 (37, 45, 51), and r = 64 on (12, 150, 150)) and B11 (``fd_hessian``: the
 valid-z smoothed 512^3 field of 514 planes, float32 and bfloat16, and
 (39, 45, 51)) against their plain versions, and B12 and B13: B12 on the
@@ -67,7 +84,7 @@ collapsed and exact Galerkin hierarchies and on every level of (69, 77, 69)
 vertex-centred Galerkin hierarchies; B13 on 8192^2 compressed and stored
 operators and on a (1531, 997) grid.
 
-The line before the last is ``{"kernels": [...]}``, 16 rows (name, route, source, the
+The line before the last is ``{"kernels": [...]}``, 20 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
 function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
@@ -196,6 +213,26 @@ KERNELS = {
         "multigridanisotropicdiffusion_tpu/ops/pallas_conv.py:581",
         "fd_hessian f32",
     ),
+    "stencil_halfsweep_local": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_compressed.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
+        "local_halfsweep0 f32", "256x512^2 block",
+    ),
+    "stencil_residual_local": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_compressed.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
+        "local_residual f32", "256x512^2 block",
+    ),
+    "stencil_stored_halfsweep_local": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_stored.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
+        "stored_local_halfsweep0 f32", "256^3 collapsed block",
+    ),
+    "stencil_stored_residual_local": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_stored.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
+        "stored_local_residual f32", "256^3 collapsed block",
+    ),
 }
 #: the kernels of the 3D compressed solve and of the VED call
 STENCIL_3D = ("stencil_halfsweep", "stencil_residual", "restrict3d", "prolong3d",
@@ -209,7 +246,14 @@ EXTRA_CASES = {
     "stencil_stored_residual": ("512^3 stored DCA", "256^3 exact"),
     "stencil_2d_halfsweep": ("8192^2 stored",),
     "stencil_2d_residual": ("8192^2 stored",),
+    "stencil_halfsweep_local": (),
+    "stencil_residual_local": (),
+    "stencil_stored_halfsweep_local": (),
+    "stencil_stored_residual_local": (),
 }
+#: the shard-local kernel B14 (compressed, and stored through B12)
+LOCAL_KERNELS = ("stencil_halfsweep_local", "stencil_residual_local",
+                 "stencil_stored_halfsweep_local", "stencil_stored_residual_local")
 
 
 def fail(msg):
@@ -390,12 +434,15 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
     torch.cuda.empty_cache()
 
 
-def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_runs):
+def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_runs,
+                  local=False):
     """B12 (``module`` = ``ops.cuda_stencil_stored``) or B13
     (``ops.cuda_stencil2d``) on one float32 operator: both half-sweeps and
     the residual in float32 and bfloat16 against the plain versions.  With
-    ``timed_runs``: CUDA-event medians and each call's work, (K + 3) values
-    per cell and 2 K float operations."""
+    ``local``, the shard-local form B14 (``halfsweep_local``,
+    ``cuda_residual_local``; ``module`` = ``ops.cuda_smoothers`` for the
+    compressed operator).  With ``timed_runs``: CUDA-event medians and each
+    call's work, (K + 3) values per cell and 2 K float operations."""
     import torch
 
     shape = op32.shape
@@ -406,12 +453,17 @@ def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_run
     b32 = torch.rand(shape, generator=gen, device="cuda") * 255.0
     for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         op, x, b = op32.astype(dtype), x32.to(dtype), b32.to(dtype)
+        sfx = "_local" if local else ""
+        sweep, sweep_plain = (getattr(module, f"halfsweep{sfx}"),
+                              getattr(module, f"halfsweep{sfx}_plain"))
+        resid, resid_plain = (getattr(module, f"cuda_residual{sfx}"),
+                              getattr(module, f"residual{sfx}_plain"))
         cases = [(f"{prefix}_halfsweep{c} {suffix}",
-                  lambda c=c: module.halfsweep(op, x, b, c),
-                  lambda c=c: module.halfsweep_plain(op, x, b, c)) for c in (0, 1)]
+                  lambda c=c: sweep(op, x, b, c),
+                  lambda c=c: sweep_plain(op, x, b, c)) for c in (0, 1)]
         cases.append((f"{prefix}_residual {suffix}",
-                      lambda: module.cuda_residual(op, x, b),
-                      lambda: module.residual_plain(op, x, b)))
+                      lambda: resid(op, x, b),
+                      lambda: resid_plain(op, x, b)))
         for name, kernel, plain in cases:
             got, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -465,7 +517,12 @@ def check_stored_and_2d(gen, errs, timings, work):
     collapsed = galerkin.collapse_to_radius1(exact)
     check_stencil("stored", "256^3 collapsed", cuda_stencil_stored, collapsed, gen, errs,
                   timings, work, True)
-    del collapsed
+    # B14 stored (the B12 kernel): one rank's block of a (2, 1, 1) mesh
+    block = StencilOperator(collapsed.coeffs[:, :128].contiguous(), collapsed.offsets)
+    log("  shard-local stored form (B14 through B12) on a block of the 256^3 collapsed level")
+    check_stencil("stored_local", "256^3 collapsed block", cuda_stencil_stored, block, gen,
+                  errs, timings, work, True, local=True)
+    del collapsed, block
     check_stencil("stored", "256^3 exact", cuda_stencil_stored, exact, gen, errs,
                   timings, work, True)
     del exact
@@ -800,8 +857,29 @@ def phase_kernels(gen):
     check_ved_kernels("(40, 48, 56) r=32", tube_phantom((40, 48, 56), gen),
                       (0.25, 0.5, 0.5), errs, timings, work, False)
     torch.cuda.empty_cache()
+    check_local(gen, errs, timings, work)
     check_stored_and_2d(gen, errs, timings, work)
     return errs, timings, work
+
+
+def check_local(gen, errs, timings, work):
+    """B14 compressed on random planes, non-zero on every border (so the
+    masking matters everywhere): one rank's (256, 512, 512) block of the
+    512^3 level on a (2, 1, 1) mesh, timed, and an odd (37, 45, 51) block."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
+    from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
+
+    log("  shard-local compressed kernel (B14)")
+    for shape, tag, timed_runs in (((256, 512, 512), "256x512^2 block", True),
+                                   ((37, 45, 51), "(37, 45, 51)", False)):
+        planes = torch.randn((10, *shape), generator=gen, device="cuda")
+        planes[-1] = 8.0 + torch.rand(shape, generator=gen, device="cuda")
+        check_stencil("local", tag, cuda_smoothers, CompressedDCAOperator(planes, 3), gen,
+                      errs, timings, work, timed_runs, local=True)
+        del planes
+    torch.cuda.empty_cache()
 
 
 def phase_reference(gen):
@@ -1094,6 +1172,10 @@ def all_counters():
         "conv_y": cuda_conv.conv_y,
         "conv_x": cuda_conv.conv_x,
         "fd_hessian": cuda_vesselness.fd_hessian,
+        "stencil_halfsweep_local": cuda_smoothers.halfsweep_local,
+        "stencil_residual_local": cuda_smoothers.cuda_residual_local,
+        "stencil_stored_halfsweep_local": cuda_stencil_stored.halfsweep_local,
+        "stencil_stored_residual_local": cuda_stencil_stored.cuda_residual_local,
     }
 
 
@@ -1255,6 +1337,299 @@ def phase_2d(gen):
     return launches, [lena, dca_2d, gal_2d]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the distributed main path, gloo ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+
+#: the 8-rank solve: every axis split on a (2, 2, 2) mesh, half the blocks of
+#: level 0 (127 planes on one side) with an odd origin, level 1 padded
+DIST_SHAPE_8 = (254, 256, 256)
+#: a group of ranks must finish within this many seconds
+DIST_TIMEOUT_S = 420
+
+
+def _b14_counts():
+    return {k: f.launches for k, f in all_counters().items() if k in LOCAL_KERNELS}
+
+
+def _reset_counters():
+    for f in all_counters().values():
+        f.launches = 0
+
+
+def dist_sweep(mesh):
+    """One distributed red-black sweep and residual through B14 on the
+    512^3 compressed operator, against B1/B2 on the whole volume (rank 0)."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_assemble, cuda_smoothers
+    from multigridanisotropicdiffusion_tpu_torch.parallel import halo
+    from multigridanisotropicdiffusion_tpu_torch.parallel.sharding import (
+        gather_level,
+        level_spec,
+        shard_field,
+        shard_operator,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = bench_tensor(SHAPE, gen)
+    op = cuda_assemble.cuda_assemble_compressed_dca(t, (1.0,) * 3, DT)
+    del t
+    x = torch.randn(SHAPE, generator=gen, device="cuda") * 10.0
+    b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
+    spec = level_spec(mesh, SHAPE)
+    op_l = shard_operator(op, mesh, spec=spec)
+    x_l, b_l = shard_field(x, mesh, spec=spec), shard_field(b, mesh, spec=spec)
+    _reset_counters()
+    y = halo.make_halo_kernel_rbgs_sweep(mesh, spec)(op_l, x_l, b_l)
+    r = halo.make_halo_kernel_residual(mesh, spec)(op_l, x_l, b_l)
+    torch.cuda.synchronize()
+    out = {"b14_launches": _b14_counts()}
+    y, r = gather_level(y, mesh, spec), gather_level(r, mesh, spec)
+    if mesh.rank == 0:
+        for name, got, want in (("sweep", y, cuda_smoothers.rbgs_sweep(op, x, b)),
+                                ("residual", r, cuda_smoothers.cuda_residual(op, x, b))):
+            scale = want.abs().max().item()
+            out[f"{name}_err_rel"] = (got - want).abs().max().item() / scale
+    return out
+
+
+def _dist_solve_run(mesh, run, warm=None):
+    """``run()`` on every rank, timed (first call, then ``warm()`` or
+    ``run()`` again), with its launches and peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    _reset_counters()
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    out = {"first_s": first_s, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {k: f.launches for k, f in all_counters().items() if f.launches}}
+    out["b14_launches"] = _b14_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    (warm or run)()
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    return res, out
+
+
+def dist_mad(mesh, shape, title, **kw):
+    """``mad_diffusion`` with ``MADConfig.cuda(**kw)`` on phase 5's
+    construction at ``shape`` across the mesh; rank 0 holds the gathered
+    output against the single-device kernel solve."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import MADConfig, gather_field, mad_diffusion
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+    from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
+    from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tensor = bench_tensor(shape, gen)
+    b = torch.rand(shape, generator=gen, device="cuda") * 255.0
+    cfg = MADConfig.cuda(time_step=DT, tolerance=1e-6, max_cycles=50, **kw)
+    hier = build_hierarchy(as_sym_planes(tensor, shape, dtype=b.dtype, device="cuda"),
+                           build_level_descriptors(shape), cfg.time_step, cfg.coarse_operator,
+                           cfg.operator_repr, cfg.use_kernels, cfg.galerkin_variant)
+    res, out = _dist_solve_run(
+        mesh, lambda: mad_diffusion(b, tensor, config=cfg, mesh=mesh),
+        lambda: mad_diffusion(b, tensor, config=cfg, mesh=mesh, hierarchy=hier))
+    del hier
+    out.update(case=title, cycles=int(res.num_cycles[0]),
+               relres=float(res.final_residual[0]))
+    full = gather_field(res.output, mesh)
+    if mesh.rank == 0:
+        ref = mad_diffusion(b, tensor, config=cfg, device="cuda")
+        out["rel_l2_vs_single"] = ((full.double() - ref.output.double()).norm()
+                                   / ref.output.double().norm()).item()
+        out["cycles_single"] = int(ref.num_cycles[0])
+        out["finite"] = bool(torch.isfinite(full).all()) and tuple(full.shape) == shape
+    return out
+
+
+def dist_ved(mesh):
+    """``ved(vol, config=VEDConfig.cuda(), mesh=mesh)`` on phase 6's 512^3
+    phantom; rank 0 holds it against the single-device kernel call and runs
+    phase 6's tube checks on the gathered outputs."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import VEDConfig, gather_field, ved
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import tube_centre, tube_phantom
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vol = tube_phantom(SHAPE, gen)
+    cfg = VEDConfig.cuda()
+    res, out = _dist_solve_run(mesh, lambda: ved(vol, config=cfg, mesh=mesh))
+    d = res.diffusion
+    out.update(case="ved 512^3", cycles=d.num_cycles.tolist(),
+               relres=d.final_residual.tolist())
+    full = gather_field(res.output, mesh)
+    ves = gather_field(res.vesselness, mesh)
+    tensor = gather_field(res.tensor, mesh)
+    del res, d
+    if mesh.rank == 0:
+        centre = tube_centre(SHAPE)
+        t = tensor[(slice(None), *centre)].double().cpu()
+        m = torch.stack([torch.stack([t[0], t[1], t[2]]), torch.stack([t[1], t[3], t[4]]),
+                         torch.stack([t[2], t[4], t[5]])])
+        out["vesselness_centre"] = float(ves[centre])
+        out["axis_cos"] = abs(float(torch.linalg.eigh(m).eigenvectors[0, -1]))
+        del tensor, ves
+        ref = ved(vol, config=cfg, device="cuda")
+        out["rel_l2_vs_single"] = ((full.double() - ref.output.double()).norm()
+                                   / ref.output.double().norm()).item()
+        out["cycles_single"] = ref.diffusion.num_cycles.tolist()
+        out["finite"] = bool(torch.isfinite(full).all()) and tuple(full.shape) == SHAPE
+    return out
+
+
+DIST_CASES = {
+    "sweep 512^3": dist_sweep,
+    "dca 512^3": lambda mesh: dist_mad(mesh, SHAPE, "dca 512^3"),
+    "ved 512^3": dist_ved,
+    "dca (254, 256, 256)": lambda mesh: dist_mad(mesh, DIST_SHAPE_8, "dca (254, 256, 256)"),
+    "galerkin collapsed (254, 256, 256)": lambda mesh: dist_mad(
+        mesh, DIST_SHAPE_8, "galerkin collapsed (254, 256, 256)", coarse_operator="galerkin"),
+}
+
+
+def dist_rank(rank, world, store, out_dir, mesh_shape, cases):
+    """One spawned rank of phase 11: gloo through a file store, its blocks on
+    cuda:0, every case of ``cases``; writes ``rank<r>.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from multigridanisotropicdiffusion_tpu_torch.parallel.sharding import (
+        initialize_multihost,
+        make_grid_mesh,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"file://{store}", world, rank, backend="gloo")
+    mesh = make_grid_mesh(3, mesh_shape, device="cuda:0")
+    report = {}
+    for case in cases:
+        report[case] = DIST_CASES[case](mesh)
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_dist(world, mesh_shape, cases):
+    """Spawn ``world`` ranks running ``cases`` and return their reports; a
+    rank that fails, or a group past DIST_TIMEOUT_S, fails the run."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        ctx = mp.start_processes(
+            dist_rank, args=(world, os.path.join(out_dir, "store"), out_dir, mesh_shape,
+                             cases), nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    fail(f"{world} ranks ran past {DIST_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        reports = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        return reports
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_distributed():
+    """The distributed main path on one card: gloo ranks sharing cuda:0 (the
+    faces staged through the host), so these numbers measure the port's
+    correctness and its overheads, not the scaling of NVLink."""
+    import torch
+
+    log("== phase 11: distributed main path, gloo ranks sharing cuda:0")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary, launches = [], {}
+    for world, mesh_shape, cases in (
+            (2, (2, 1, 1), ("sweep 512^3", "dca 512^3", "ved 512^3")),
+            (8, (2, 2, 2), ("dca (254, 256, 256)", "galerkin collapsed (254, 256, 256)"))):
+        t0 = time.perf_counter()
+        reports = run_dist(world, mesh_shape, cases)
+        log(f"  {world} ranks, mesh {mesh_shape}: {time.perf_counter() - t0:.1f} s with the "
+            "spawn")
+        for case in cases:
+            rows = [rep[case] for rep in reports]
+            head = rows[0]
+            for r, row in enumerate(rows):
+                if not all(row["b14_launches"].get(k) for k in LOCAL_KERNELS[:2]) and \
+                        not all(row["b14_launches"].get(k) for k in LOCAL_KERNELS[2:]):
+                    fail(f"{case}: rank {r} launched no B14: {row['b14_launches']}")
+            if case.startswith("sweep"):
+                log(f"  {case}: rel max err of the distributed sweep "
+                    f"{head['sweep_err_rel']:.3e}, residual {head['residual_err_rel']:.3e} "
+                    "(bound 1e-5); B14 launches per rank "
+                    f"{[row['b14_launches'] for row in rows]}")
+                if not (head["sweep_err_rel"] <= 1e-5 and head["residual_err_rel"] <= 1e-5):
+                    fail(f"{case}: the distributed sweep disagrees with B1/B2")
+                continue
+            for r, row in enumerate(rows):
+                log(f"  {case} rank {r}: first call {row['first_s']:.3f} s, warm "
+                    f"{row['warm_s']:.3f} s, peak device memory {row['peak_gib']:.2f} GiB, "
+                    f"B14 launches {row['b14_launches']}")
+            cycles = head["cycles"] if isinstance(head["cycles"], list) else [head["cycles"]]
+            single = head["cycles_single"]
+            single = single if isinstance(single, list) else [single]
+            relres = head["relres"] if isinstance(head["relres"], list) else [head["relres"]]
+            log(f"  {case}: cycles {cycles} (single device {single}), relres "
+                f"{[f'{v:.3e}' for v in relres]}, rel_l2 to the single-device kernel run "
+                f"{head['rel_l2_vs_single']:.3e} (bound 1e-4)")
+            ok = (head["finite"] and head["rel_l2_vs_single"] <= 1e-4
+                  and all(v <= 1e-6 for v in relres)
+                  and all(abs(a - c) <= 1 for a, c in zip(cycles, single)))
+            if case.startswith("ved"):
+                log(f"  {case}: vesselness at the tube centre {head['vesselness_centre']:.4f}, "
+                    f"principal axis |cos| to the tube {head['axis_cos']:.4f}")
+                ok = ok and head["vesselness_centre"] > 0.1 and head["axis_cos"] > 0.9
+            if not ok:
+                fail(f"{case}: the distributed run is off")
+            summary.append(dict(case=f"distributed {case}", ranks=world,
+                                mesh=list(mesh_shape), cycles=cycles, relres=relres,
+                                rel_l2_vs_single=head["rel_l2_vs_single"],
+                                first_s=[row["first_s"] for row in rows],
+                                warm_s=[row["warm_s"] for row in rows],
+                                peak_gib=[row["peak_gib"] for row in rows],
+                                b14_launches=[row["b14_launches"] for row in rows]))
+            if case == "dca 512^3":
+                launches.update({k: n for k, n in head["b14_launches"].items()
+                                 if k in LOCAL_KERNELS[:2]})
+            if case.startswith("galerkin"):
+                launches.update({k: n for k, n in head["b14_launches"].items()
+                                 if k in LOCAL_KERNELS[2:]})
+    missing = [k for k in LOCAL_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"phase 11 launched no {missing}")
+    return launches, summary
+
+
 #: the solve kernels' work per 512^3 float32 call: planes moved (each read or
 #: written once, in units of the 512^3 volume) and float operations per fine
 #: cell, counted from their sources
@@ -1303,7 +1678,9 @@ def main():
                      if k in ("conv_y", "conv_x", "fd_hessian")})
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernel_less = phase_kernel_less(gen)
-    log(f"phases 2-10 took {time.perf_counter() - t_start:.1f} s")
+    dist_launches, dist_solves = phase_distributed()
+    launches.update(dist_launches)
+    log(f"phases 2-11 took {time.perf_counter() - t_start:.1f} s")
 
     cells = SHAPE[0] * SHAPE[1] * SHAPE[2]
     rows = []
@@ -1340,7 +1717,7 @@ def main():
                 "bound_ms": bound_ms(e_bytes, e_ops)[0],
                 "max_abs_err": errs[(case, extra)]})
         rows.append(row)
-    print(json.dumps({"solves": solves + solves_2d + kernel_less}))
+    print(json.dumps({"solves": solves + solves_2d + kernel_less + dist_solves}))
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,14 @@ The entry points run on the CUDA card unless the caller passes
 
 The ITK-style façades (``MultigridAnisotropicDiffusionImageFilter``,
 ``VEDMultigridImageFilter``) wrap the same two entry points.
+
+Distributed over ``torch.distributed`` ranks (one device each; every rank
+runs the same program with the whole input and gets back its block):
+
+    madt.initialize_multihost()          # torchrun's env://, or explicit
+    mesh = madt.make_grid_mesh(3)        # or make_multihost_grid_mesh(3)
+    res = madt.mad_diffusion(image, tensor, config=cfg, mesh=mesh)
+    out = madt.gather_field(res.output, mesh)   # the whole volume
 """
 
 from .core.grids import CELL, VERTEX, GridLevel, build_level_descriptors
@@ -41,13 +49,26 @@ from .ops.galerkin import assemble_galerkin
 from .ops.matfree import MatrixFreeDCAOperator
 from .ops.smoothers import jacobi_sweep, rb_gauss_seidel_sweep
 from .ops.transfer import prolong, restrict
+from .parallel.sharding import (
+    DEFAULT_MIN_LOCAL,
+    GridMesh,
+    factorize_devices,
+    gather_field,
+    initialize_multihost,
+    level_spec,
+    make_grid_mesh,
+    make_multihost_grid_mesh,
+    shard_field,
+)
 
 __all__ = [
-    "CELL", "DCA", "FMG", "GALERKIN", "SMOOTHER", "VCYCLE", "VERTEX", "GridLevel",
-    "Hierarchy", "MADConfig", "MADResult", "MatrixFreeDCAOperator",
-    "MultigridAnisotropicDiffusionImageFilter", "StencilOperator", "VEDConfig",
-    "VEDMultigridImageFilter", "VEDResult", "apply_stencil", "as_sym_planes",
-    "assemble_dca", "assemble_galerkin", "build_hierarchy", "build_level_descriptors",
-    "jacobi_sweep", "l2_norm", "mad_diffusion", "prolong", "rb_gauss_seidel_sweep",
-    "residual", "restrict", "stencil_offsets", "sym_pairs", "ved",
+    "CELL", "DCA", "DEFAULT_MIN_LOCAL", "FMG", "GALERKIN", "SMOOTHER", "VCYCLE",
+    "VERTEX", "GridLevel", "GridMesh", "Hierarchy", "MADConfig", "MADResult",
+    "MatrixFreeDCAOperator", "MultigridAnisotropicDiffusionImageFilter",
+    "StencilOperator", "VEDConfig", "VEDMultigridImageFilter", "VEDResult",
+    "apply_stencil", "as_sym_planes", "assemble_dca", "assemble_galerkin",
+    "build_hierarchy", "build_level_descriptors", "factorize_devices", "gather_field",
+    "initialize_multihost", "jacobi_sweep", "l2_norm", "level_spec", "mad_diffusion",
+    "make_grid_mesh", "make_multihost_grid_mesh", "prolong", "rb_gauss_seidel_sweep",
+    "residual", "restrict", "shard_field", "stencil_offsets", "sym_pairs", "ved",
 ]

@@ -16,8 +16,11 @@ façades leave ``use_pallas`` off; ``set_config(MADConfig.cuda())`` or
 ``set_config(VEDConfig.cuda(...))`` takes the kernel path.  Every setter
 returns ``self`` so calls chain.  ``update()`` re-runs the solve.  The
 ``device`` constructor argument goes to the entry points: the card unless
-it says ``"cpu"``.  ``set_mesh`` raises: distribution is not ported yet
-(ROADMAP A11).
+it says ``"cpu"``.  ``set_mesh(mesh, min_local)`` distributes the solve over
+a :class:`~..parallel.sharding.GridMesh`; every rank drives the façade with
+the whole input, and ``get_output()`` returns the whole volume on every rank
+(``parallel.sharding.gather_field``), as the JAX façades return their global
+arrays; ``get_result()`` keeps the rank's blocks.
 """
 
 from __future__ import annotations
@@ -27,6 +30,22 @@ from typing import Optional, Sequence
 
 from .mad import MADConfig, MADResult, mad_diffusion
 from .ved import VEDConfig, VEDResult, ved
+
+
+def _checked(mesh):
+    if mesh is None:
+        return None
+    from ..parallel.sharding import require_mesh
+
+    return require_mesh(mesh)
+
+
+def _whole(x, mesh):
+    if mesh is None:
+        return x
+    from ..parallel.sharding import gather_field
+
+    return gather_field(x, mesh)
 
 
 class MultigridAnisotropicDiffusionImageFilter:
@@ -47,6 +66,8 @@ class MultigridAnisotropicDiffusionImageFilter:
         self._spacing = None
         self._result: Optional[MADResult] = None
         self._device = device
+        self._mesh = None
+        self._min_local = 8
 
     # -- inputs ----------------------------------------------------------
     def set_input(self, image):
@@ -64,8 +85,10 @@ class MultigridAnisotropicDiffusionImageFilter:
         return self
 
     def set_mesh(self, mesh, min_local: int = 8):
-        """SPMD distribution (no reference counterpart): not ported yet."""
-        raise NotImplementedError("distribution (mesh) is not ported yet (ROADMAP A11)")
+        """Distribution over a mesh of ranks (no reference counterpart)."""
+        self._mesh = _checked(mesh)
+        self._min_local = min_local
+        return self
 
     # -- reference setters (.h:131-160) -----------------------------------
     def _replace(self, **kw):
@@ -108,14 +131,15 @@ class MultigridAnisotropicDiffusionImageFilter:
             raise ValueError("set_input() and set_diffusion_tensor() first")
         self._result = mad_diffusion(
             self._input, self._tensor, spacing=self._spacing,
-            config=self._config, device=self._device,
+            config=self._config, device=self._device, mesh=self._mesh,
+            min_local=self._min_local,
         )
         return self
 
     def get_output(self):
         if self._result is None:
             self.update()
-        return self._result.output
+        return _whole(self._result.output, self._mesh)
 
     def get_result(self) -> MADResult:
         if self._result is None:
@@ -132,6 +156,8 @@ class VEDMultigridImageFilter:
         self._spacing = None
         self._result: Optional[VEDResult] = None
         self._device = device
+        self._mesh = None
+        self._min_local = 8
 
     def set_input(self, image):
         self._input = image
@@ -142,7 +168,9 @@ class VEDMultigridImageFilter:
         return self
 
     def set_mesh(self, mesh, min_local: int = 8):
-        raise NotImplementedError("distribution (mesh) is not ported yet (ROADMAP A11)")
+        self._mesh = _checked(mesh)
+        self._min_local = min_local
+        return self
 
     def _replace(self, **kw):
         self._config = dataclasses.replace(self._config, **kw)
@@ -202,14 +230,14 @@ class VEDMultigridImageFilter:
             raise ValueError("set_input() first")
         self._result = ved(
             self._input, spacing=self._spacing, config=self._config,
-            device=self._device,
+            device=self._device, mesh=self._mesh, min_local=self._min_local,
         )
         return self
 
     def get_output(self):
         if self._result is None:
             self.update()
-        return self._result.output
+        return _whole(self._result.output, self._mesh)
 
     def get_result(self) -> VEDResult:
         if self._result is None:

@@ -26,8 +26,16 @@ Differences from the JAX package:
   :mod:`..ops.matfree`) and the Chebyshev smoother have no kernels, in the
   JAX package or here: they run as plain PyTorch on every device.  The JAX
   package's deprecated ``MADConfig.matrix_free`` alias is not carried over.
-* Not ported yet, and refused with ``NotImplementedError``: device meshes
-  and halo exchange (ROADMAP A11).
+* Distribution (``mesh=``, :mod:`..parallel`): every rank of a
+  :class:`~..parallel.sharding.GridMesh` receives the whole input, builds
+  the whole hierarchy (the setup runs replicated, as in the JAX package),
+  keeps its blocks, and solves on them with explicit halo exchanges
+  (``halo='shard_map'`` or ``'overlap'``, one path; XLA's ``'gspmd'`` has
+  no counterpart), block transfers between levels, a replicated coarsest solve
+  and global norms that every rank computes alike.  With ``use_kernels``
+  the 3D radius-1 levels run the shard-local kernel B14.  Each rank returns
+  its block of the output (:func:`..parallel.sharding.output_range`);
+  :func:`..parallel.sharding.gather_field` assembles the whole volume.
 """
 
 from __future__ import annotations
@@ -99,6 +107,11 @@ class MADConfig:
     #: the counterpart of the JAX package's use_pallas plus its TPU-backend
     #: gates on assembly and transfers.
     use_kernels: bool = False
+    #: distribution strategy with a mesh (ignored without): 'shard_map' or
+    #: 'overlap', the JAX package's names; both exchange the halos, then
+    #: contract (parallel.halo says why there is one path).  Both need a
+    #: stored or compressed operator and a GS/Jacobi/Chebyshev smoother.
+    halo: str = "overlap"
     #: print the per-cycle relative-residual trace after the solve.
     verbose: bool = False
     #: mixed-precision defect correction: each outer cycle computes the
@@ -120,6 +133,11 @@ class MADConfig:
             raise ValueError(f"unknown galerkin_variant: {self.galerkin_variant!r}")
         if self.operator_repr not in ("stored", "compressed", "matrix_free"):
             raise ValueError(f"unknown operator_repr: {self.operator_repr!r}")
+        if self.halo == "gspmd":
+            raise ValueError("halo='gspmd' (XLA's partitioner) has no counterpart in "
+                             "PyTorch: use halo='overlap', the same math")
+        if self.halo not in ("shard_map", "overlap"):
+            raise ValueError(f"unknown halo mode: {self.halo!r}")
         if self.defect_dtype is not None:
             torch_dtype(self.defect_dtype)  # must name a dtype
 
@@ -127,10 +145,12 @@ class MADConfig:
     def cuda(cls, mixed_precision: bool = True, **kw) -> "MADConfig":
         """The H100 fast path: compressed operator + the CUDA kernels (+ bf16
         inner defect cycles unless ``mixed_precision=False``); the
-        counterpart of the JAX package's ``MADConfig.tpu()`` without a mesh.
-        Keyword overrides pass through to the constructor."""
+        counterpart of the JAX package's ``MADConfig.tpu()``; with a mesh the
+        sweeps run B14 per block (``halo='overlap'``, as ``tpu()``).  Keyword
+        overrides pass through to the constructor."""
         kw.setdefault("operator_repr", "compressed")
         kw.setdefault("use_kernels", True)
+        kw.setdefault("halo", "overlap")
         if mixed_precision:
             kw.setdefault("defect_dtype", "bfloat16")
         return cls(**kw)
@@ -203,6 +223,32 @@ def build_hierarchy(
     return Hierarchy(operators=tuple(ops), solver=build_coarse_solver(coarsest_stored))
 
 
+class Transfers(NamedTuple):
+    """The level hooks of the cycles: ``restrict(r, fine_level)``,
+    ``prolong(e, fine_level)`` and ``solve_coarse(solver, b, level)``.  The
+    standard ones apply ops.transfer / ops.coarse to whole fields; the
+    distributed solve's act on blocks (:mod:`..parallel.transfer`)."""
+
+    restrict: object
+    prolong: object
+    solve_coarse: object
+
+
+def _standard_transfers(levels: Tuple[GridLevel, ...], use_kernels: bool = False) -> Transfers:
+    return Transfers(
+        restrict=lambda r, fl: restrict(r, levels[fl + 1].centering, use_kernels),
+        prolong=lambda e, fl: prolong(e, levels[fl + 1].centering, use_kernels),
+        solve_coarse=lambda solver, b, level: coarse_solve(solver, b),
+    )
+
+
+def _at(fn, level: int):
+    """A smoother or residual for ``level``: one function for every level,
+    or one per level (the distributed solve's, whose blocks carry their
+    level's split)."""
+    return fn[level] if isinstance(fn, (tuple, list)) else fn
+
+
 def v_cycle(
     hier: Hierarchy,
     levels: Tuple[GridLevel, ...],
@@ -213,26 +259,30 @@ def v_cycle(
     level: int = 0,
     resid=residual,
     use_kernels: bool = False,
+    transfers: Transfers | None = None,
 ) -> torch.Tensor:
     """One V-cycle starting at ``level`` (reference VCycle, .hxx:341-493).
     At the coarsest level the initial guess is ignored and the rhs is solved
-    directly.  ``use_kernels`` routes the transfers through their kernels."""
+    directly.  ``use_kernels`` routes the standard transfers through their
+    kernels; ``transfers`` replaces them."""
+    if transfers is None:
+        transfers = _standard_transfers(levels, use_kernels)
     if level == len(levels) - 1:
-        return coarse_solve(hier.solver, b)
+        return transfers.solve_coarse(hier.solver, b, level)
 
     op = hier.operators[level]
-    cent = levels[level + 1].centering
+    sm = _at(smooth, level)
     for _ in range(iterations_per_grid):
-        x = smooth(op, x, b)
-    r = resid(op, x, b)
+        x = sm(op, x, b)
+    r = _at(resid, level)(op, x, b)
 
-    rc = restrict(r, cent, use_kernels)
+    rc = transfers.restrict(r, level)
     ec = v_cycle(hier, levels, smooth, iterations_per_grid, torch.zeros_like(rc),
-                 rc, level + 1, resid, use_kernels)
-    x = x + prolong(ec, cent, use_kernels)
+                 rc, level + 1, resid, use_kernels, transfers)
+    x = x + transfers.prolong(ec, level)
 
     for _ in range(iterations_per_grid):
-        x = smooth(op, x, b)
+        x = sm(op, x, b)
     return x
 
 
@@ -245,24 +295,46 @@ def full_multigrid(
     level: int = 0,
     resid=residual,
     use_kernels: bool = False,
+    transfers: Transfers | None = None,
 ) -> torch.Tensor:
     """Full multigrid initialization (reference FullMultiGrid, .hxx:300-338)."""
+    if transfers is None:
+        transfers = _standard_transfers(levels, use_kernels)
     if level == len(levels) - 1:
         x = torch.zeros_like(b)
         for _ in range(iterations_per_grid):
             x = v_cycle(hier, levels, smooth, iterations_per_grid, x, b, level,
-                        resid, use_kernels)
+                        resid, use_kernels, transfers)
         return x
 
-    cent = levels[level + 1].centering
-    bc = restrict(b, cent, use_kernels)
+    bc = transfers.restrict(b, level)
     xc = full_multigrid(hier, levels, smooth, iterations_per_grid, bc, level + 1,
-                        resid, use_kernels)
-    x = prolong(xc, cent, use_kernels)
+                        resid, use_kernels, transfers)
+    x = transfers.prolong(xc, level)
     for _ in range(iterations_per_grid):
         x = v_cycle(hier, levels, smooth, iterations_per_grid, x, b, level,
-                    resid, use_kernels)
+                    resid, use_kernels, transfers)
     return x
+
+
+class _SolveOps(NamedTuple):
+    """What a time step needs besides the hierarchy: the smoother and the
+    residual (one, or one per level), the transfers and the L2 norm."""
+
+    smooth: object
+    resid: object
+    transfers: Transfers
+    norm: object
+
+
+def _single_device_ops(levels, config: MADConfig) -> _SolveOps:
+    return _SolveOps(
+        smooth=make_smoother(config.smoother, config.jacobi_weight,
+                             use_kernels=config.use_kernels),
+        resid=make_residual(use_kernels=config.use_kernels),
+        transfers=_standard_transfers(levels, config.use_kernels),
+        norm=l2_norm,
+    )
 
 
 class MADResult(NamedTuple):
@@ -296,23 +368,23 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
 
 
 def _solve_time_step(hier: Hierarchy, levels: Tuple[GridLevel, ...],
-                     config: MADConfig, b: torch.Tensor):
+                     config: MADConfig, b: torch.Tensor, ops: _SolveOps | None = None):
     """One implicit time step: cycles until the relative L2 residual falls
     below tolerance or max_cycles is hit (do-while, .hxx:207-246).  Returns
     ``(x, cycles, final relres tensor, history tensor)``."""
-    smooth = make_smoother(config.smoother, config.jacobi_weight,
-                           use_kernels=config.use_kernels)
-    resid = make_residual(use_kernels=config.use_kernels)
+    if ops is None:
+        ops = _single_device_ops(levels, config)
     if config.defect_dtype is not None:
-        return _solve_time_step_defect(hier, levels, config, b, smooth, resid)
+        return _solve_time_step_defect(hier, levels, config, b, ops)
+    smooth, resid, transfers, norm = ops
     op0 = hier.operators[0]
     dtype = b.dtype
     tol = _in_dtype(config.tolerance, dtype)
-    rhs_norm = l2_norm(b)
+    rhs_norm = norm(b)
 
     if config.cycle == FMG:
         x = full_multigrid(hier, levels, smooth, config.iterations_per_grid, b,
-                           0, resid, config.use_kernels)
+                           0, resid, transfers=transfers)
     else:
         x = b  # previous step's solution as the initial guess (.hxx:180-201)
 
@@ -321,11 +393,11 @@ def _solve_time_step(hier: Hierarchy, levels: Tuple[GridLevel, ...],
     k = 0
     while k < config.max_cycles and float(relres) > tol:
         if config.cycle == SMOOTHER:
-            x = smooth(op0, x, b)
+            x = _at(smooth, 0)(op0, x, b)
         else:
             x = v_cycle(hier, levels, smooth, config.iterations_per_grid, x, b,
-                        0, resid, config.use_kernels)
-        relres = l2_norm(resid(op0, x, b)) / rhs_norm
+                        0, resid, transfers=transfers)
+        relres = norm(_at(resid, 0)(op0, x, b)) / rhs_norm
         hist[k] = relres
         k += 1
     return x, k, relres, hist
@@ -343,8 +415,7 @@ def _solve_time_step_defect(
     levels: Tuple[GridLevel, ...],
     config: MADConfig,
     b: torch.Tensor,
-    smooth,
-    resid,
+    ops: _SolveOps,
 ):
     """Mixed-precision defect correction: ``x += cycle_lo(0, b - A x)``.
 
@@ -352,6 +423,7 @@ def _solve_time_step_defect(
     precision (``config.defect_dtype``) bounds only the per-cycle
     contraction, not the attainable residual.
     """
+    smooth, resid, transfers, norm = ops
     lo = torch_dtype(config.defect_dtype)
     dtype = b.dtype
     op0 = hier.operators[0]
@@ -360,23 +432,24 @@ def _solve_time_step_defect(
     switch = float(config.defect_switch_factor)
     hi_top = _in_dtype(config.tolerance * switch, dtype)
     hi_bottom = _in_dtype(config.tolerance * (switch / 20.0), dtype)
-    rhs_norm = l2_norm(b)
+    rhs_norm = norm(b)
+    resid0 = _at(resid, 0)
 
     def inner(h, r):
         if config.cycle == SMOOTHER:
-            return smooth(h.operators[0], torch.zeros_like(r), r)
+            return _at(smooth, 0)(h.operators[0], torch.zeros_like(r), r)
         return v_cycle(h, levels, smooth, config.iterations_per_grid,
-                       torch.zeros_like(r), r, 0, resid, config.use_kernels)
+                       torch.zeros_like(r), r, 0, resid, transfers=transfers)
 
     if config.cycle == FMG:
         x = full_multigrid(hier_lo, levels, smooth, config.iterations_per_grid,
-                           b.to(lo), 0, resid, config.use_kernels).to(dtype)
+                           b.to(lo), 0, resid, transfers=transfers).to(dtype)
     else:
         x = b  # previous step's solution as the initial guess (.hxx:180-201)
 
     hist = torch.zeros((config.max_cycles,), dtype=dtype, device=b.device)
     relres = torch.tensor(math.inf, dtype=dtype, device=b.device)
-    r = resid(op0, x, b)
+    r = resid0(op0, x, b)
     k = 0
     relres_host = math.inf
     while k < config.max_cycles and relres_host > tol:
@@ -388,18 +461,18 @@ def _solve_time_step_defect(
         else:
             d = inner(hier_lo, r.to(lo)).to(dtype)
         x = x + d
-        r = resid(op0, x, b)
-        relres = l2_norm(r) / rhs_norm
+        r = resid0(op0, x, b)
+        relres = norm(r) / rhs_norm
         hist[k] = relres
         relres_host = float(relres)
         k += 1
     return x, k, relres, hist
 
 
-def _solve_all_steps(hier, levels, config, b) -> MADResult:
+def _solve_all_steps(hier, levels, config, b, ops: _SolveOps | None = None) -> MADResult:
     hists, counts, finals = [], [], []
     for _ in range(config.number_of_steps):
-        b, k, relres, hist = _solve_time_step(hier, levels, config, b)
+        b, k, relres, hist = _solve_time_step(hier, levels, config, b, ops)
         hists.append(hist)
         counts.append(k)
         finals.append(relres)
@@ -411,6 +484,78 @@ def _solve_all_steps(hier, levels, config, b) -> MADResult:
     )
 
 
+# ---------------------------------------------------------------------------
+# the distributed solve
+# ---------------------------------------------------------------------------
+
+
+def _level_layouts(mesh, levels: Tuple[GridLevel, ...], min_local: int):
+    """Per level: true shape, padded embedding (parallel.padding) and split;
+    the counterpart of the JAX package's ``_padded_shapes``."""
+    from ..parallel.padding import padded_level_shape
+    from ..parallel.sharding import level_spec
+    from ..parallel.transfer import Layout
+
+    out = []
+    for lvl in levels:
+        pshape = padded_level_shape(mesh, lvl.shape, min_local)
+        out.append(Layout(lvl.shape, pshape, level_spec(mesh, pshape, min_local)))
+    return tuple(out)
+
+
+def _make_halo_ops(mesh, layouts, config: MADConfig):
+    """Per-level halo-exchange smoothers and residuals on the blocks
+    (parallel.halo): with ``use_kernels`` the 3D radius-1 levels run B14
+    (the compressed operator and stored radius-1 levels), the others the
+    plain halo path, as the JAX package runs XLA for them."""
+    from ..parallel import halo as H
+
+    if config.operator_repr == "matrix_free":
+        raise ValueError("a mesh needs operator_repr='stored' or 'compressed' (the "
+                         "matrix-free operator has no planes to exchange halos for)")
+    smooths, resids = [], []
+    for lay in layouts:
+        spec = lay.spec
+        if config.smoother in ("gauss_seidel", "gs", "rbgs"):
+            sm = (H.make_halo_kernel_rbgs_sweep(mesh, spec) if config.use_kernels
+                  else H.make_halo_rbgs_sweep(mesh, spec))
+        elif config.smoother in ("weighted_jacobi", "wj", "jacobi"):
+            sm = H.make_halo_jacobi_sweep(mesh, spec, config.jacobi_weight)
+        elif config.smoother in ("chebyshev", "cheby"):
+            sm = H.make_halo_chebyshev_smoother(mesh, spec)
+        else:
+            raise ValueError("a mesh supports the gauss_seidel, weighted_jacobi and "
+                             f"chebyshev smoothers (got {config.smoother!r})")
+        smooths.append(sm)
+        resids.append(H.make_halo_kernel_residual(mesh, spec) if config.use_kernels
+                      else H.make_halo_residual(mesh, spec))
+    return tuple(smooths), tuple(resids)
+
+
+def _mesh_ops(mesh, levels, layouts, config: MADConfig) -> _SolveOps:
+    from ..parallel.sharding import global_sum
+    from ..parallel.transfer import BlockTransfers
+
+    smooth, resid = _make_halo_ops(mesh, layouts, config)
+    spec0 = layouts[0].spec
+
+    def norm(x):
+        return torch.sqrt(global_sum(torch.sum(x * x), mesh, spec0))
+
+    return _SolveOps(smooth, resid, BlockTransfers(mesh, levels, layouts, config.use_kernels),
+                     norm)
+
+
+def _check_mesh_config(config: MADConfig, min_local: int) -> None:
+    if (config.coarse_operator == GALERKIN and config.galerkin_variant == "exact"
+            and min_local < 2):
+        # exact Galerkin levels reach radius 2: a one-hop exchange needs
+        # blocks at least that thick
+        raise ValueError("a mesh with exact Galerkin coarse operators needs min_local >= 2 "
+                         f"(got {min_local}); raise min_local or use "
+                         "galerkin_variant='collapsed'")
+
+
 def mad_diffusion(
     image,
     tensor,
@@ -420,6 +565,7 @@ def mad_diffusion(
     hierarchy: Hierarchy | None = None,
     device=None,
     mesh=None,
+    min_local: int = 8,
 ) -> MADResult:
     """Run the MAD filter: setup + ``number_of_steps`` implicit steps.
 
@@ -433,17 +579,25 @@ def mad_diffusion(
       dtype: solve precision; defaults to float64 on the CPU (the
         reference's double precision) and float32 on CUDA.
       hierarchy: reuse a prebuilt :class:`Hierarchy` (same tensor, spacing
-        and time step).
+        and time step), of the whole domain.
       device: where to solve; ``None`` means the CUDA card, and raises
         when there is none.  ``device="cpu"`` asks for the CPU (the plain
-        PyTorch versions of the kernels).
-      mesh: distribution over devices is not ported yet (ROADMAP A11).
+        PyTorch versions of the kernels).  With a mesh: the mesh's device.
+      mesh: a :class:`~..parallel.sharding.GridMesh`; every rank passes
+        the whole ``image`` and ``tensor`` and gets back its block of the
+        output (``result.output``; the histories are global).  Levels whose
+        blocks would drop below ``min_local`` points per axis are
+        replicated (agglomeration).
     """
     config = config or MADConfig()
     if mesh is not None:
-        raise NotImplementedError(
-            "distributed solves (mesh/halo) are not ported yet (ROADMAP A11)"
-        )
+        from ..parallel.sharding import require_mesh
+
+        require_mesh(mesh)
+        _check_mesh_config(config, min_local)
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -462,6 +616,7 @@ def mad_diffusion(
         hierarchy = build_hierarchy(planes, levels, config.time_step,
                                     config.coarse_operator, config.operator_repr,
                                     config.use_kernels, config.galerkin_variant)
+        del planes
         if (config.coarse_operator == GALERKIN and config.galerkin_variant == "exact"
                 and config.galerkin_prune_tol > 0):
             # after the coarse LU, as in the JAX package: the coarsest
@@ -471,7 +626,21 @@ def mad_diffusion(
                 for op in hierarchy.operators[1:])
             hierarchy = Hierarchy(operators=ops, solver=hierarchy.solver)
 
-    result = _solve_all_steps(hierarchy, levels, config, b)
+    if mesh is None:
+        result = _solve_all_steps(hierarchy, levels, config, b)
+    else:
+        from ..parallel.padding import pad_field, pad_hierarchy
+        from ..parallel.sharding import output_block, shard_field, shard_hierarchy
+
+        layouts = _level_layouts(mesh, levels, min_local)
+        pshapes = tuple(lay.pshape for lay in layouts)
+        # pad-to-divisible embeddings, then this rank's blocks
+        hierarchy = shard_hierarchy(pad_hierarchy(hierarchy, pshapes), mesh, min_local)
+        b = shard_field(pad_field(b, pshapes[0]), mesh, spec=layouts[0].spec)
+        result = _solve_all_steps(hierarchy, levels, config, b,
+                                  _mesh_ops(mesh, levels, layouts, config))
+        result = result._replace(output=output_block(
+            result.output, mesh, shape, layouts[0].spec, pshapes[0]))
     if config.verbose:
         print_residual_trace(result, config)
     return result

@@ -21,14 +21,21 @@ Hessian runs through B6 (z) and B10 (y, x) and the rest stays plain tensor
 ops, as the JAX package leaves it to XLA.  Tensors are ``(6, *shape)`` stacks in symfield order.
 
 Large volumes are processed in z slabs (``_auto_z_slab``): a Python loop over
-slabs that writes into preallocated outputs.  Not ported yet: device meshes
-(ROADMAP A11).
+slabs that writes into preallocated outputs.
+
+With a mesh (:mod:`..parallel`) every rank receives the whole volume; the
+pipeline runs on one z slab per rank, cut with its halo planes from the
+volume (:mod:`..parallel.pipeline`, either Hessian mode), an all-gather
+assembles its outputs for the solve's replicated setup, and the solve is the
+distributed ``mad_diffusion``.  Each rank returns its blocks;
+``parallel.sharding.gather_field`` assembles the volume.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -77,6 +84,8 @@ class VEDConfig:
     #: z-slab thickness of the vesselness pipeline; 0 = auto (tile large
     #: volumes), None = never tile.
     pipeline_z_slab: int | None = 0
+    #: distribution strategy of the solve with a mesh (MADConfig.halo)
+    halo: str = "overlap"
     #: mixed-precision defect cycles of the solve (MADConfig.defect_dtype)
     defect_dtype: str | None = None
     #: 'smooth_fd' (smooth once per scale, then central differences) or
@@ -118,6 +127,7 @@ class VEDConfig:
             galerkin_prune_tol=self.galerkin_prune_tol,
             operator_repr="matrix_free" if self.matrix_free else self.operator_repr,
             use_kernels=self.use_kernels,
+            halo=self.halo,
             defect_dtype=self.defect_dtype,
         )
 
@@ -330,20 +340,22 @@ def _auto_z_slab(shape: Tuple[int, ...], requested: int | None) -> int | None:
 
 def ved(image, spacing: Sequence[float] | None = None,
         config: VEDConfig | None = None, dtype=None, mesh=None,
-        device=None) -> VEDResult:
+        device=None, min_local: int = 8) -> VEDResult:
     """Run the full VED filter on a 3D volume (numpy or torch).
 
     ``device``: ``None`` means the CUDA card and raises when there is none;
     ``device="cpu"`` asks for the CPU.  ``dtype``: the solve precision,
-    float64 on the CPU and float32 on CUDA by default.  ``mesh``: not ported
-    yet (ROADMAP A11)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "distributed VED (mesh) is not ported yet (ROADMAP A11)"
-        )
+    float64 on the CPU and float32 on CUDA by default.  ``mesh``: a
+    :class:`~..parallel.sharding.GridMesh`; every rank passes the whole
+    volume and gets back its blocks (output, vesselness, tensor)."""
     config = config or VEDConfig()
     if image.ndim != 3:
         raise ValueError(f"VED expects a 3D volume, got rank {image.ndim}")
+    if mesh is not None:
+        from ..parallel.sharding import require_mesh
+
+        require_mesh(mesh)
+        device = mesh.device if device is None else device
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -356,18 +368,58 @@ def ved(image, spacing: Sequence[float] | None = None,
     else:
         u = torch.as_tensor(np.asarray(image), dtype=dtype, device=device)
     u = u.contiguous()
-    z_slab = _auto_z_slab(tuple(u.shape), config.pipeline_z_slab)
     mad_cfg = config.mad_config()
+    args = (tuple(config.scales), spacing, config.alpha, config.beta, config.gamma,
+            config.epsilon, config.omega, config.sensitivity)
+    if mesh is None:
+        pipeline = functools.partial(
+            fused_vesselness_tensor, z_slab=_auto_z_slab(tuple(u.shape), config.pipeline_z_slab),
+            hessian_mode=config.hessian_mode, pipeline_dtype=config.pipeline_dtype,
+            use_kernels=config.use_kernels)
+    else:
+        pipeline = _mesh_pipeline(tuple(u.shape), mesh, config, args)
 
     resp = tensor = diffusion = None
-    for _ in range(config.iterations):
-        resp, tensor = fused_vesselness_tensor(
-            u, tuple(config.scales), spacing, config.alpha, config.beta,
-            config.gamma, config.epsilon, config.omega, config.sensitivity,
-            z_slab, config.hessian_mode, config.pipeline_dtype,
-            config.use_kernels,
-        )
+    for it in range(config.iterations):
+        if it and mesh is not None:
+            from ..parallel.sharding import gather_field
+
+            u = gather_field(u, mesh)
+        # with a mesh the outputs are whole on every rank: the solve's setup
+        # runs replicated, from the whole tensor
+        resp, tensor = pipeline(u, *args)
         diffusion = mad_diffusion(u, tensor, spacing=spacing, config=mad_cfg,
-                                  dtype=dtype, device=device)
+                                  dtype=dtype, device=device, mesh=mesh,
+                                  min_local=min_local)
         u = diffusion.output
+    if mesh is not None:
+        from ..parallel.sharding import output_block
+
+        shape, whole = tuple(resp.shape), (None,) * 3
+        resp = output_block(resp, mesh, shape, whole, shape)
+        tensor = output_block(tensor, mesh, shape, whole, shape)
     return VEDResult(output=u, vesselness=resp, tensor=tensor, diffusion=diffusion)
+
+
+def _mesh_pipeline(shape, mesh, config: VEDConfig, args):
+    """The distributed pipeline (``u`` whole on every rank -> the whole
+    response and tensor on every rank): z slabs where the shape splits into
+    them, else the single-device pipeline on the whole volume on every rank,
+    as the JAX package's global-view path computes it."""
+    from ..parallel.pipeline import make_sharded_vesselness_pipeline
+
+    slab = (shape[0] // mesh.size,) + tuple(shape[1:])
+    sharded = make_sharded_vesselness_pipeline(
+        shape, mesh, *args, hessian_mode=config.hessian_mode,
+        pipeline_dtype=config.pipeline_dtype, use_kernels=config.use_kernels,
+        z_slab=_auto_z_slab(slab, config.pipeline_z_slab))
+    if sharded is not None:
+        return lambda u, *_: sharded(u)
+    logging.getLogger(__name__).info(
+        "VED on mesh %s: the z extent of %s does not split into %d slabs of at least "
+        "the pipeline halo; every rank runs the whole-volume pipeline",
+        mesh.shape, shape, mesh.size)
+    return functools.partial(
+        fused_vesselness_tensor, z_slab=config.pipeline_z_slab or None,
+        hessian_mode=config.hessian_mode, pipeline_dtype=config.pipeline_dtype,
+        use_kernels=config.use_kernels)

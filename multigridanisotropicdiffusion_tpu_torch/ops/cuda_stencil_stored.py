@@ -11,7 +11,17 @@ PyTorch version for a CPU tensor; for a CUDA tensor it launches the kernel
 or raises.  Storage may be float32, bfloat16 or float64; 16-bit storage
 computes in float32 and rounds once at the store.
 
-``halfsweep.launches`` and ``cuda_residual.launches`` count kernel launches.
+The shard-local form of radius-1 operators (B14 stored, the JAX package's
+``local_mask=True`` with ``offsets``; ``halfsweep_local``,
+``cuda_residual_local``) needs no kernel of its own: the kernel skips every
+term whose neighbour lies outside the array, which on a rank's block is
+exactly ``_mask_local_shells_stored`` (:func:`mask_local_shells_stored`,
+the plain versions' masking).  It runs the same kernel under its own launch
+counters.
+
+``halfsweep.launches``, ``cuda_residual.launches``,
+``halfsweep_local.launches`` and ``cuda_residual_local.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -122,3 +132,76 @@ def cuda_residual(op: StencilOperator, x: torch.Tensor,
 
 
 cuda_residual.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the shard-local form (B14 stored): the same kernel
+# ---------------------------------------------------------------------------
+
+
+def mask_local_shells_stored(op: StencilOperator) -> StencilOperator:
+    """The plain form of ``_mask_local_shells_stored``: each coefficient
+    zeroed on the block shells its offset crosses (radius 1)."""
+    if op.radius != 1:
+        raise ValueError(f"the shard-local form takes radius-1 operators, got {op!r}")
+    ids = []
+    for d, n in enumerate(op.shape):
+        view = [1] * op.ndim
+        view[d] = n
+        ids.append(torch.arange(n, device=op.coeffs.device).reshape(view))
+    zero = torch.zeros((), dtype=op.dtype, device=op.coeffs.device)
+    planes = []
+    for plane, off in zip(op.coeffs, op.offsets):
+        keep = None
+        for d, o in enumerate(off):
+            if o:
+                cond = ids[d] < op.shape[d] - 1 if o > 0 else ids[d] > 0
+                keep = cond if keep is None else keep & cond
+        planes.append(plane if keep is None else torch.where(keep, plane, zero))
+    return StencilOperator(torch.stack(planes), op.offsets)
+
+
+def halfsweep_local_plain(op: StencilOperator, x: torch.Tensor, b: torch.Tensor,
+                          color: int) -> torch.Tensor:
+    return gs_halfsweep(mask_local_shells_stored(op), x, b, color)
+
+
+def residual_local_plain(op: StencilOperator, x: torch.Tensor,
+                         b: torch.Tensor) -> torch.Tensor:
+    return residual_plain(mask_local_shells_stored(op), x, b)
+
+
+def _check_local(name, op, x, b):
+    _check(name, op, x, b)
+    if op.radius != 1:
+        raise ValueError(f"{name}: the shard-local form takes radius-1 operators")
+
+
+def halfsweep_local(op: StencilOperator, x: torch.Tensor, b: torch.Tensor,
+                    color: int) -> torch.Tensor:
+    """The half-sweep of parity ``color`` (local index sum) on a block of a
+    radius-1 operator, every term across the block's border dropped."""
+    if x.device.type == "cpu":
+        return halfsweep_local_plain(op, x, b, color)
+    _check_local("halfsweep_local", op, x, b)
+    out = _launch("mad_stencil_stored_halfsweep", op, x, b, int(color))
+    halfsweep_local.launches += 1
+    return out
+
+
+halfsweep_local.launches = 0
+
+
+def cuda_residual_local(op: StencilOperator, x: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """The residual on a block of a radius-1 operator, every term across
+    the block's border dropped."""
+    if x.device.type == "cpu":
+        return residual_local_plain(op, x, b)
+    _check_local("cuda_residual_local", op, x, b)
+    out = _launch("mad_stencil_stored_residual", op, x, b)
+    cuda_residual_local.launches += 1
+    return out
+
+
+cuda_residual_local.launches = 0

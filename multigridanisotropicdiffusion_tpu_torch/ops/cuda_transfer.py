@@ -10,7 +10,15 @@ leading batch axis is allowed: ``(B, Z, Y, X)`` restricts B fields in one
 launch.  Each wrapper takes the plain version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.
 
-``cuda_restrict.launches`` and ``cuda_prolong.launches`` count launches.
+The block form (:func:`restrict_block`, :func:`prolong_block`) serves the
+distributed solve (:mod:`..parallel.transfer`): the same kernels on one
+rank's halo-extended block, with per-axis tables the caller gives (rows of
+the global tables, starts shifted into the block) as a :class:`BlockTables`,
+whose device copies it keeps.  Their plain version is
+:func:`.transfer.apply_taps_plain`.
+
+``cuda_restrict.launches`` and ``cuda_prolong.launches`` count launches,
+the block form's included.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from ..core.stencil import compute_dtype
 from ..utils.build import check_launch, kernel, require_cuda, stream_of
 from .transfer import (
+    apply_taps_plain,
     coarse_size,
     fine_size,
     prolong_plain,
@@ -115,3 +124,67 @@ def cuda_prolong(x: torch.Tensor, centering: Tuple[str, ...]) -> torch.Tensor:
 
 
 cuda_prolong.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the block form: explicit tables
+# ---------------------------------------------------------------------------
+
+
+class BlockTables:
+    """Per-axis ``(start, weights)`` tables of one block transfer (int32
+    starts into the block, ``taps`` weights per output row), with their
+    copies on ``device`` in the compute dtype of ``dtype`` and the six axis
+    pointers the kernels take, made once: the caller keeps it for every
+    transfer of that level."""
+
+    def __init__(self, tables, taps: int, dtype: torch.dtype, device):
+        self.tables = tuple((np.asarray(s, np.int32), np.asarray(w)) for s, w in tables)
+        if len(self.tables) != 3 or any(w.shape != (len(s), taps) for s, w in self.tables):
+            raise ValueError(f"block tables: 3 axes of {taps} weights per row")
+        self.out_shape = tuple(len(s) for s, _ in self.tables)
+        self.weight_dtype = compute_dtype(dtype)
+        self.device = torch.device(device)
+        self.ptrs = None
+        if self.device.type == "cuda":
+            self.starts = torch.as_tensor(np.concatenate([s for s, _ in self.tables]),
+                                          dtype=torch.int32, device=self.device)
+            self.weights = torch.as_tensor(
+                np.concatenate([w.ravel() for _, w in self.tables]),
+                dtype=self.weight_dtype, device=self.device)
+            s_off = np.cumsum([0] + [len(s) for s, _ in self.tables[:-1]]).tolist()
+            w_off = np.cumsum([0] + [w.size for _, w in self.tables[:-1]]).tolist()
+            self.ptrs = ([self.starts.data_ptr() + o * self.starts.element_size()
+                          for o in s_off]
+                         + [self.weights.data_ptr() + o * self.weights.element_size()
+                            for o in w_off])
+
+
+def _block(name, entry, counter, x, bt: BlockTables, order):
+    if x.device.type == "cpu":
+        return apply_taps_plain(x, bt.tables, order)
+    require_cuda(name, x)
+    if x.dim() != 3:
+        raise ValueError(f"{name}: takes a (Z, Y, X) block")
+    if bt.device != x.device or bt.weight_dtype != compute_dtype(x.dtype):
+        raise ValueError(f"{name}: tables made for {bt.device} / {bt.weight_dtype}, "
+                         f"block on {x.device} / {x.dtype}")
+    out = torch.empty(bt.out_shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    err = kernel(entry, x.dtype)(
+        x.data_ptr(), out.data_ptr(), 1, *x.shape, *bt.out_shape, *bt.ptrs, stream_of(x),
+    )
+    check_launch(err, name)
+    counter.launches += 1
+    return out
+
+
+def restrict_block(x: torch.Tensor, tables: BlockTables) -> torch.Tensor:
+    """The restriction kernel on a block (tables of 4 weights per row)."""
+    return _block("restrict_block", "mad_restrict3d", cuda_restrict, x, tables, (0, 1, 2))
+
+
+def prolong_block(x: torch.Tensor, tables: BlockTables) -> torch.Tensor:
+    """The prolongation kernel on a block (2 weights per row)."""
+    return _block("prolong_block", "mad_prolong3d", cuda_prolong, x, tables, (2, 1, 0))

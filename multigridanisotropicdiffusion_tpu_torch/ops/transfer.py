@@ -222,6 +222,33 @@ def prolong_plain(x: torch.Tensor, centering: Sequence[str]) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def apply_taps_plain(x: torch.Tensor, tables, order: Sequence[int]) -> torch.Tensor:
+    """A transfer given by explicit per-axis tap tables over the trailing
+    ``len(tables)`` axes, one axis at a time in ``order``: along axis d,
+    ``out[i] = sum_t weights[i, t] * x[start[i] + t]`` (indices clamped into
+    the axis; a clamped tap has weight 0).  The plain version of the
+    transfer kernels' block form (:func:`.cuda_transfer.restrict_block`,
+    :func:`.cuda_transfer.prolong_block`); with the tables of
+    :func:`restrict_taps` (axes 0, 1, 2) or :func:`prolong_taps` (axes 2, 1,
+    0) it computes :func:`restrict_plain` / :func:`prolong_plain`."""
+    lead = x.dim() - len(tables)
+    y = x.to(compute_dtype(x.dtype))
+    for d in order:
+        start, weights = tables[d]
+        axis = lead + d
+        n = y.shape[axis]
+        view = [1] * y.dim()
+        view[axis] = len(start)
+        out = None
+        for t in range(weights.shape[1]):
+            idx = torch.as_tensor(np.minimum(np.asarray(start) + t, n - 1), device=y.device)
+            w = torch.as_tensor(weights[:, t], dtype=y.dtype, device=y.device).reshape(view)
+            term = w * y.index_select(axis, idx)
+            out = term if out is None else out + term
+        y = out
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ plain C interface, loaded with :mod:`ctypes`:
 
 The build happens at the first launch, into ``_build/`` beside ``csrc/``,
 and again whenever a source's content changes (the library's name carries
-a hash of the sources and flags).  It needs nothing but the sources in the
+a hash of the sources and flags).  Processes that start together (the ranks
+of a distributed run) build once: the build holds an exclusive ``flock`` on
+``_build/.lock`` (:func:`build_lock`), and whoever comes second finds the
+library built.  It needs nothing but the sources in the
 package and the CUDA toolkit: no PyTorch headers, no downloads.  ptxas's
 per-kernel register report is kept in ``_build/build.log``.  A failed build
 raises with nvcc's output.
@@ -23,7 +26,9 @@ Pointers and the stream go to the C functions as ``c_void_p``, sizes as
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -53,6 +58,9 @@ SIGNATURES = {
     "mad_stencil_halfsweep": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_int, _STREAM),
     # planes, x, b, out, nz, ny, nx, stream
     "mad_stencil_residual": (_P, _P, _P, _P, _I, _I, _I, _STREAM),
+    # the shard-local forms (B14), same arguments
+    "mad_stencil_halfsweep_local": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_int, _STREAM),
+    "mad_stencil_residual_local": (_P, _P, _P, _P, _I, _I, _I, _STREAM),
     # in, out, batch, in dims (3), out dims (3), starts (3), weights (3), stream
     "mad_restrict3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
     "mad_prolong3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
@@ -129,13 +137,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmadkernels-{source_hash()}.so"
 
 
+@contextlib.contextmanager
+def build_lock(directory: Path | None = None):
+    """Hold the exclusive inter-process lock of the build directory
+    (``flock`` on its ``.lock`` file, released when the block ends or the
+    process dies)."""
+    directory = BUILD_DIR if directory is None else Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build() -> Path:
     """Compile the library unless the current sources' build exists: one
-    ``nvcc -c`` per source, run in parallel, then one link."""
+    ``nvcc -c`` per source, run in parallel, then one link, under
+    :func:`build_lock`."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock():
+        if out.exists():  # another process built it while we waited
+            return out
+        return _build(out)
+
+
+def _build(out: Path) -> Path:
     tag = f"{source_hash()}.{os.getpid()}"
     nvcc = find_nvcc()
     jobs = []

@@ -61,17 +61,25 @@ def solver_from_numpy(solver, dtype=None, device=None) -> CoarseSolver:
     )
 
 
+def halo_from_jax(halo: str) -> str:
+    """The JAX package's ``halo`` -> the port's: ``'gspmd'`` (XLA's
+    partitioner, no counterpart) becomes ``'overlap'``, the same math."""
+    return "overlap" if halo == "gspmd" else halo
+
+
 def mad_config_from_jax(cfg) -> MADConfig:
     """A JAX ``MADConfig`` -> the port's, field by field (read by attribute):
     ``use_pallas`` becomes ``use_kernels``, the deprecated ``matrix_free``
-    alias becomes ``operator_repr='matrix_free'``, and ``halo`` has no
-    counterpart yet (ROADMAP A11) and is dropped."""
+    alias becomes ``operator_repr='matrix_free'``, ``halo`` goes through
+    :func:`halo_from_jax`."""
     kw = {}
     for f in dataclasses.fields(MADConfig):
         if f.name == "use_kernels":
             kw[f.name] = cfg.use_pallas
         elif f.name == "operator_repr":
             kw[f.name] = "matrix_free" if cfg.matrix_free else cfg.operator_repr
+        elif f.name == "halo":
+            kw[f.name] = halo_from_jax(cfg.halo)
         else:
             kw[f.name] = getattr(cfg, f.name)
     return MADConfig(**kw)
@@ -79,13 +87,17 @@ def mad_config_from_jax(cfg) -> MADConfig:
 
 def ved_config_from_jax(cfg) -> VEDConfig:
     """A JAX ``VEDConfig`` -> the port's, field by field (read by attribute):
-    ``use_pallas`` becomes ``use_kernels``; ``halo`` has no counterpart yet
-    (ROADMAP A11) and is dropped."""
+    ``use_pallas`` becomes ``use_kernels``, ``halo`` goes through
+    :func:`halo_from_jax`."""
     kw = {}
     for f in dataclasses.fields(VEDConfig):
         src = "use_pallas" if f.name == "use_kernels" else f.name
         value = getattr(cfg, src)
-        kw[f.name] = tuple(value) if f.name == "scales" else value
+        if f.name == "scales":
+            value = tuple(value)
+        elif f.name == "halo":
+            value = halo_from_jax(value)
+        kw[f.name] = value
     return VEDConfig(**kw)
 
 

@@ -1,0 +1,127 @@
+"""Where the time of one warm distributed solve goes, on one CUDA card.
+
+    python -m multigridanisotropicdiffusion_tpu_torch.utils.profile_dist
+
+Spawns 2 gloo ranks that share cuda:0 (mesh (2, 1, 1), faces staged through
+the host), each with ``chip_smoke.py``'s seeded 512^3 inputs, runs the
+``MADConfig.cuda()`` solve to 1e-6 once to warm up, then once more on a
+prebuilt hierarchy with rank 0 under ``torch.profiler``, and prints for
+rank 0: the wall time, its own kernels' device time (the other rank's
+kernels run on the same card and are not in this process's trace), the
+host time inside the port's communication ranges (``madt.exchange``: face
+exchanges; ``madt.gather``: gathers and the global sums) with their counts,
+and the device time by kernel group.  The card's name and power limit come
+first.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+from .profile_ved import _device_us
+
+SHAPE = (512, 512, 512)
+GROUPS = {
+    "B14 shard-local stencil": ("stencil_kernel<float, false, true>",
+                                "stencil_kernel<float, true, true>",
+                                "stencil_kernel<__nv_bfloat16, false, true>",
+                                "stencil_kernel<__nv_bfloat16, true, true>"),
+    "B1/B2 whole-domain stencil": ("stencil_kernel",),
+    "B3/B4 3D transfers": ("transfer_kernel",),
+}
+
+
+def _rank(rank, world, store, out):
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..core.grids import build_level_descriptors
+    from ..models.mad import MADConfig, build_hierarchy, mad_diffusion
+    from ..parallel.sharding import initialize_multihost, make_grid_mesh
+
+    torch.cuda.set_device(0)
+    initialize_multihost(f"file://{store}", world, rank, backend="gloo")
+    mesh = make_grid_mesh(3, (world, 1, 1), device="cuda:0")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = torch.randn((3, 3, *SHAPE), generator=gen, device="cuda")
+    pairs = [(i, j) for i in range(3) for j in range(i, 3)]
+    t = torch.stack([(rows[i] * rows[j]).sum(0) + (2.0 if i == j else 0.0) for i, j in pairs])
+    del rows
+    b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
+    cfg = MADConfig.cuda(time_step=0.1, tolerance=1e-6)
+    hier = build_hierarchy(t, build_level_descriptors(SHAPE), cfg.time_step,
+                           cfg.coarse_operator, cfg.operator_repr, cfg.use_kernels)
+    mad_diffusion(b, t, config=cfg, mesh=mesh, hierarchy=hier)
+    torch.cuda.synchronize()
+    dist.barrier()
+    tracer = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if rank == 0 else contextlib.nullcontext())
+    with tracer as prof:
+        t0 = time.perf_counter()
+        res = mad_diffusion(b, t, config=cfg, mesh=mesh, hierarchy=hier)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rank == 0:
+        lines = []
+        events = prof.key_averages()
+        # the madt.* ranges also carry a device-side span (first to last
+        # device operation inside them): reported below, not summed here
+        kernels = [e for e in events if _device_us(e) > 0 and not e.key.startswith("madt.")
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        device = sum(_device_us(e) for e in kernels) / 1e6
+        lines.append(f"rank 0 of {world}, 512^3 MADConfig.cuda(): {int(res.num_cycles[0])} "
+                     f"cycles, wall {wall:.4f} s, its kernels {device:.4f} s "
+                     f"({device / wall:.1%} of the wall)")
+        for name in ("madt.exchange", "madt.gather"):
+            ev = [e for e in events if e.key == name]
+            host_ev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CPU]
+            host = sum(e.cpu_time_total for e in host_ev) / 1e6
+            span = sum(_device_us(e) for e in ev if e not in host_ev) / 1e6
+            lines.append(f"  {name}: {sum(e.count for e in host_ev)} calls, {host:.4f} s "
+                         f"host ({host / wall:.1%} of the wall), device-side span {span:.4f} s")
+        grouped = {g: 0.0 for g in (*GROUPS, "other")}
+        for e in kernels:
+            group = next((g for g, frags in GROUPS.items()
+                          if any(f in e.key for f in frags)), "other")
+            grouped[group] += _device_us(e) / 1e6
+        for g, s in grouped.items():
+            lines.append(f"  {g}: {s * 1e3:.2f} ms, {s / max(device, 1e-12):.1%} of its "
+                         "device time")
+        launches = sum(e.count for e in kernels)
+        lines.append(f"  {launches} device operations; the largest:")
+        lines.append(f"  {'device ms':>10} {'share':>6} {'calls':>6}  kernel")
+        for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
+            lines.append(f"  {_device_us(e) / 1e3:10.3f} {_device_us(e) / 1e6 / device:6.1%} "
+                         f"{e.count:6d}  {e.key[:100]}")
+        with open(out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    import torch.multiprocessing as mp
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=False).stdout.strip())
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "report.txt")
+        mp.start_processes(_rank, args=(2, os.path.join(d, "store"), out), nprocs=2,
+                           start_method="spawn")
+        print(open(out).read(), end="")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -69,3 +69,16 @@ def test_library_name_follows_sources_and_flags(monkeypatch):
 def test_unsupported_dtype_is_refused_before_any_build():
     with pytest.raises(TypeError):
         build.kernel("mad_stencil_residual", torch.float16)
+
+
+def test_build_lock_excludes_a_second_process(tmp_path):
+    """Two processes that take the build lock at once hold it one after the
+    other (ranks that start together build once)."""
+    from .torch_dist_workers import build_lock_worker, run_ranks
+
+    log = tmp_path / "held"
+    run_ranks(build_lock_worker, 2, tmp_path, str(tmp_path / "build"), str(log), timeout=60)
+    spans = sorted(tuple(map(float, (tmp_path / f"held.{r}").read_text().split()))
+                   for r in range(2))
+    assert spans[0][1] <= spans[1][0], spans
+    assert (tmp_path / "build" / ".lock").exists()

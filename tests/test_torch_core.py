@@ -106,6 +106,13 @@ def test_import_leaves_jax_out():
         "cuda_smoothers, cuda_transfer, cuda_assemble, cuda_conv, "
         "cuda_vesselness, eigen3, hessian, matfree, smoothers\n"
         "from multigridanisotropicdiffusion_tpu_torch.models import ved, trace, filters\n"
+        "from multigridanisotropicdiffusion_tpu_torch.parallel import sharding, padding, "
+        "halo, transfer, pipeline\n"
+        "from multigridanisotropicdiffusion_tpu_torch.ops.cuda_transfer import "
+        "restrict_block, prolong_block\n"
+        "from multigridanisotropicdiffusion_tpu_torch.ops.cuda_smoothers import "
+        "halfsweep_local, cuda_residual_local\n"
+        "assert m.make_grid_mesh and m.gather_field and m.initialize_multihost\n"
         "from multigridanisotropicdiffusion_tpu_torch.utils import build, compare, "
         "convert, phantom, profile_ved, benchlog, checkpoint, io, native, profiling\n"
         "assert m.mad_diffusion and m.MADConfig and m.MADResult\n"

@@ -96,7 +96,7 @@ def test_kernel_wrappers_refuse_bad_input(device):
         cuda_smoothers.halfsweep(op, x.transpose(0, 2), x, 0)
     with pytest.raises(ValueError):
         cuda_transfer.cuda_restrict(torch.ones((8, 8), device=device), ("c", "c"))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="GridMesh"):
         mad_diffusion(torch.ones((16, 16), device=device), torch.ones((3, 16, 16)),
                       config=MADConfig.cuda(), device=device, mesh=object())
 

@@ -1,0 +1,128 @@
+"""The shard-local kernel B14 against its plain versions on the card, and
+the distributed kernel path with two ranks on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda_halo.py`` runs
+them on a machine with a card.  The planes are random and non-zero on every
+border, so the masking matters at every block face.  Tolerances as in
+``tests/test_torch_cuda.py``: float64 1e-12 and float32 1e-5 of the largest
+reference value, bf16 one bf16 ulp of each value with the float32 floor.
+The two-rank tests: gloo ranks sharing cuda:0 (faces staged through the
+host), and NCCL ranks on two cards where there are two.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, stencil_offsets
+from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers, cuda_stencil_stored
+from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
+
+from .torch_dist_workers import cuda_worker, run_ranks
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = [torch.float64, torch.float32, torch.bfloat16]
+SHAPES = [(37, 45, 51), (16, 24, 16), (1, 5, 3)]
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _check(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.double(), want.double()
+    scale = w.abs().max().item()
+    err = (g - w).abs()
+    assert bool(torch.isfinite(g).all())
+    if want.dtype == torch.bfloat16:
+        a = w.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+        assert bool((err <= torch.maximum(ulp, torch.full_like(ulp, 1e-5 * scale))).all())
+    else:
+        tol = 1e-12 if want.dtype == torch.float64 else 1e-5
+        assert err.max().item() <= tol * scale
+
+
+def _inputs(shape, device, dtype, k):
+    gen = torch.Generator(device=device).manual_seed(0)
+    planes = torch.randn((k, *shape), generator=gen, device=device, dtype=torch.float64)
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float64)
+    b = torch.randn(shape, generator=gen, device=device, dtype=torch.float64)
+    return planes, x.to(dtype), b.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_b14_compressed_matches_plain(device, shape, dtype):
+    planes, x, b = _inputs(shape, device, dtype, 10)
+    planes[-1] = 8.0 + planes[-1].abs()
+    op = CompressedDCAOperator(planes.to(dtype), 3)
+    before = (cuda_smoothers.halfsweep_local.launches, cuda_smoothers.cuda_residual_local.launches)
+    for color in (0, 1):
+        _check(cuda_smoothers.halfsweep_local(op, x, b, color),
+               cuda_smoothers.halfsweep_local_plain(op, x, b, color))
+    _check(cuda_smoothers.cuda_residual_local(op, x, b),
+           cuda_smoothers.residual_local_plain(op, x, b))
+    torch.cuda.synchronize()
+    assert (cuda_smoothers.halfsweep_local.launches - before[0],
+            cuda_smoothers.cuda_residual_local.launches - before[1]) == (2, 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_b14_stored_through_b12_matches_plain(device, shape, dtype):
+    offsets = stencil_offsets(3, 1, drop_corners=False)
+    planes, x, b = _inputs(shape, device, dtype, len(offsets))
+    c = offsets.index((0, 0, 0))
+    planes[c] = 30.0 + planes[c].abs()
+    op = StencilOperator(planes.to(dtype), offsets)
+    before = cuda_stencil_stored.halfsweep_local.launches
+    for color in (0, 1):
+        _check(cuda_stencil_stored.halfsweep_local(op, x, b, color),
+               cuda_stencil_stored.halfsweep_local_plain(op, x, b, color))
+    _check(cuda_stencil_stored.cuda_residual_local(op, x, b),
+           cuda_stencil_stored.residual_local_plain(op, x, b))
+    torch.cuda.synchronize()
+    assert cuda_stencil_stored.halfsweep_local.launches - before == 2
+
+
+def test_b14_wrappers_refuse_what_the_kernel_does_not_take(device):
+    planes, x, b = _inputs((4, 5, 6), device, torch.float32, 10)
+    op = CompressedDCAOperator(planes.float(), 3)
+    with pytest.raises(ValueError):
+        cuda_smoothers.halfsweep_local(op, x[:, :4], b, 0)
+    offsets = stencil_offsets(3, 2, drop_corners=False)
+    op2 = StencilOperator(torch.zeros((len(offsets), 4, 5, 6), device=device), offsets)
+    with pytest.raises(ValueError):
+        cuda_stencil_stored.halfsweep_local(op2, x, b, 0)
+
+
+def _two_ranks(tmp_path, backend):
+    run_ranks(cuda_worker, 2, tmp_path, str(tmp_path / "out.npz"), backend, timeout=110)
+    return dict(np.load(tmp_path / "out.npz"))
+
+
+def _check_two_ranks(r):
+    for name in ("sweep", "residual"):
+        scale = np.abs(r[f"{name}_ref"]).max()
+        assert np.abs(r[name] - r[f"{name}_ref"]).max() <= 1e-5 * scale
+    assert (r["launches"] > 0).all()
+    assert abs(int(r["cycles"][0]) - int(r["cycles_ref"][0])) <= 1
+    rel = np.linalg.norm(r["solve"] - r["solve_ref"]) / np.linalg.norm(r["solve_ref"])
+    assert rel <= 1e-4
+
+
+def test_distributed_kernel_path_gloo_ranks_share_one_card(device, tmp_path):
+    _check_two_ranks(_two_ranks(tmp_path, "gloo"))
+
+
+def test_distributed_kernel_path_nccl_two_cards(device, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _check_two_ranks(_two_ranks(tmp_path, "nccl"))

@@ -24,6 +24,7 @@ from multigridanisotropicdiffusion_tpu_torch import (
     ved,
 )
 from multigridanisotropicdiffusion_tpu_torch.utils.convert import (
+    halo_from_jax,
     mad_config_from_jax,
     ved_config_from_jax,
 )
@@ -91,13 +92,17 @@ def test_ved_filter_matches_functional_and_jax():
 @pytest.mark.parametrize("smoother", ["gauss_seidel", "weighted_jacobi", "chebyshev"])
 def test_defaults_match_jax_field_by_field(smoother):
     """The reference ctor defaults, through ``convert``: the JAX façades
-    keep ``use_pallas`` off, the port's ``use_kernels``."""
+    keep ``use_pallas`` off, the port's ``use_kernels``; the JAX package's
+    default ``halo='gspmd'`` is the port's ``'overlap'``."""
     mad = MultigridAnisotropicDiffusionImageFilter(smoother).get_config()
     jmad = jfilters.MultigridAnisotropicDiffusionImageFilter(smoother).get_config()
     assert mad == mad_config_from_jax(jmad)
     for f in dataclasses.fields(MADConfig):
         src = "use_pallas" if f.name == "use_kernels" else f.name
-        assert getattr(mad, f.name) == getattr(jmad, src), f.name
+        want = getattr(jmad, src)
+        if f.name == "halo":
+            want = halo_from_jax(want)
+        assert getattr(mad, f.name) == want, f.name
     assert not mad.use_kernels
     v = VEDMultigridImageFilter(smoother).get_config()
     jv = jfilters.VEDMultigridImageFilter(smoother).get_config()
@@ -138,7 +143,7 @@ def test_refusals_and_device(monkeypatch):
     with pytest.raises(ValueError, match="set_input"):
         VEDMultigridImageFilter().update()
     for f in (MultigridAnisotropicDiffusionImageFilter(), VEDMultigridImageFilter()):
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(TypeError, match="GridMesh"):
             f.set_mesh(object())
     # no device argument: the card, and no card here
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

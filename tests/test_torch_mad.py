@@ -166,5 +166,9 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_mesh_refused():
-    with pytest.raises(NotImplementedError, match="A11"):
+    """A mesh that is not a GridMesh, and XLA's gspmd halo mode, are refused
+    (the distributed solve itself: tests/test_torch_dist_mad.py)."""
+    with pytest.raises(TypeError, match="GridMesh"):
         mad_diffusion(np.zeros(SHAPE), np.zeros((6, *SHAPE)), mesh=object())
+    with pytest.raises(ValueError, match="overlap"):
+        MADConfig.cuda(halo="gspmd")

@@ -207,9 +207,10 @@ def _refusals():
 @pytest.mark.parametrize(
     "case", ["mad_mesh", "ved_mesh", "trace_mesh", "mad_filter_mesh", "ved_filter_mesh"])
 def test_unported_features_refuse(case):
-    """Distribution (ROADMAP A11) is not ported: every entry point that takes
-    a mesh refuses it; an unknown operator representation is an error."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    """Every entry point that takes a mesh refuses one that is not a
+    GridMesh (the distributed paths: tests/test_torch_dist_*.py); an
+    unknown operator representation is an error."""
+    with pytest.raises(TypeError, match="GridMesh"):
         _refusals()[case]()
     with pytest.raises(ValueError, match="operator_repr"):
         MADConfig(operator_repr="implicit")

@@ -116,6 +116,8 @@ def test_trace_from_result_matches_jax():
 
 
 def test_trace_refuses_a_mesh():
+    """A mesh that is not a GridMesh is refused (the distributed trace:
+    tests/test_torch_dist_ved.py)."""
     tensor, image = _inputs((8, 8))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="GridMesh"):
         mad_diffusion_verbose(image, tensor, mesh=object(), device="cpu")

@@ -143,7 +143,7 @@ def test_config_carried_across_from_jax():
 
 def test_refusals(monkeypatch):
     vol = _phantom()
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(TypeError, match="GridMesh"):  # the mesh path: test_torch_dist_ved
         ved(vol, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         ved(np.zeros((8, 8)), device="cpu")
