@@ -16,8 +16,16 @@ Phases, one line or more each; any failure exits non-zero:
    kernels on a tube phantom: 512^3 float32 and bfloat16 storage with
    sigma = 2 taps (r = 8), an odd (37, 45, 51) volume, and r = 32 (sigma = 2
    at z spacing 0.25) on a small volume; B8 in its first and select
-   variants.  Median times by CUDA events, beside the library call that
-   computes the same function where there is one;
+   variants.  Median times by CUDA events (a call under 2 ms is timed in
+   bursts of 10 back-to-back calls, so the wrappers' host time overlaps the
+   card's work), beside the library call that
+   computes the same function where there is one: on the all-cell levels
+   ``F.interpolate(mode="trilinear", align_corners=False)`` for the
+   prolongation and replicate padding plus a stride-2 ``F.conv3d`` with the
+   ``[1, 3, 3, 1] / 8`` product kernel for the restriction (each checked
+   against the plain version in float32; cuDNN's TF32 off).  The
+   prolongation's add form ``x + P e`` is held bit for bit to ``x +
+   cuda_prolong(e)`` and timed beside those two launches;
 4. reference: a small float64 solve through the kernels against a dense
    direct solve, and the float32 + bf16 path on the same input;
 5. MAD main path: ``mad_diffusion`` at 512^3 with ``MADConfig.cuda()`` to a
@@ -120,6 +128,9 @@ LENA = Path(__file__).resolve().parent / "tests" / "goldens" / "lena_gs_v.npz"
 #: the exact Galerkin variant falls back to 256^3 above this setup peak
 EXACT_PEAK_LIMIT_GIB = 60e9 / 2**30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+#: calls per CUDA-event timing of a call shorter than BURST_BELOW_MS
+BURST = 10
+BURST_BELOW_MS = 2.0
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PARAMS = (0.5, 0.5, 5.0)  # VEDConfig's alpha, beta, gamma
 TENSOR_PARAMS = (0.01, 5.0, 10.0)  # epsilon, omega, sensitivity
@@ -300,13 +311,23 @@ def check(name, got, want):
 
 
 def median_ms(fn, reps, setup=None):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up;
-    ``setup`` runs before each launch, outside the timed window."""
+    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up call.
+    A call that takes less than BURST_BELOW_MS is timed BURST times back to
+    back and divided, so that the host's time between two launches (the
+    wrapper's Python) does not count while the card is busy; ``setup`` runs
+    before each call, outside the timed window, one call per timing."""
     import torch
 
     if setup:
         setup()
     fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    burst = 1 if setup or start.elapsed_time(end) >= BURST_BELOW_MS else BURST
     times = []
     for _ in range(reps):
         if setup:
@@ -314,10 +335,11 @@ def median_ms(fn, reps, setup=None):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
 
 
@@ -369,9 +391,11 @@ def phase_build():
     build.load_library()
     log(f"built and loaded {build.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s")
-    regs = [ln.strip() for ln in (build.BUILD_DIR / "build.log").read_text().splitlines()
-            if "registers" in ln]
+    lines = (build.BUILD_DIR / "build.log").read_text().splitlines()
+    regs = [ln.strip() for ln in lines if "registers" in ln]
+    spills = [ln.strip() for ln in lines if "spill" in ln and " 0 bytes spill stores" not in ln]
     log(f"ptxas: {len(regs)} kernels; " + "; ".join(sorted(set(regs))))
+    log(f"ptxas: {len(spills)} kernels spill" + "".join(f"; {ln}" for ln in spills))
 
 
 def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
@@ -380,7 +404,9 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
     Records ``errs[(case, tag)]`` and ``timings[(case, tag)]`` (kernel ms,
     plain ms)."""
     import torch
+    import torch.nn.functional as F
 
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import CELL
     from multigridanisotropicdiffusion_tpu_torch.ops import (
         compressed,
         cuda_assemble,
@@ -389,14 +415,18 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
         transfer,
     )
 
-    def timed(name, kernel, plain):
+    def timed(name, kernel, plain, library=None):
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
         errs[(name, tag)] = check(f"{name} {tag}", got, want)
+        if library is not None and want.dtype == torch.float32:
+            check(f"{name} {tag} library form", library(), want)
         del got, want
-        ms = timings[(name, tag)] = (median_ms(kernel, 10), median_ms(plain, 3))
-        log(f"    {name} {tag}: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms")
+        ms = timings[(name, tag)] = (median_ms(kernel, 10), median_ms(plain, 3),
+                                     median_ms(library, 10) if library else None)
+        log(f"    {name} {tag}: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms, library "
+            f"{'none' if ms[2] is None else f'{ms[2]:.3f} ms'}")
 
     t = bench_tensor(shape, gen)
     timed("assemble_compressed f32",
@@ -417,12 +447,31 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
         if next_centering is not None:
             cent = next_centering
             e = transfer.restrict_plain(x, cent)
+            # the library forms compute these functions on all-cell levels
+            # only (tests/test_torch_transfer.py), so they are timed there
+            all_cell = set(cent) == {CELL}
+            w1 = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda", dtype=dtype) / 8
+            w_fw = (w1[:, None, None] * w1[None, :, None] * w1[None, None, :])[None, None]
             timed(f"restrict3d {suffix}",
                   lambda: cuda_transfer.cuda_restrict(x, cent),
-                  lambda: transfer.restrict_plain(x, cent))
+                  lambda: transfer.restrict_plain(x, cent),
+                  (lambda: F.conv3d(F.pad(x[None, None], (1,) * 6, mode="replicate"),
+                                    w_fw, stride=2)[0, 0]) if all_cell else None)
             timed(f"prolong3d {suffix}",
                   lambda: cuda_transfer.cuda_prolong(e, cent),
-                  lambda: transfer.prolong_plain(e, cent))
+                  lambda: transfer.prolong_plain(e, cent),
+                  (lambda: F.interpolate(e[None, None], scale_factor=2, mode="trilinear",
+                                         align_corners=False)[0, 0]) if all_cell else None)
+            # the add form (x + P e, the V-cycle's correction): bit for bit
+            # the two launches it replaces, which are timed beside it
+            pair = x + cuda_transfer.cuda_prolong(e, cent)
+            if not torch.equal(cuda_transfer.cuda_prolong_add(x, e, cent), pair):
+                fail(f"prolong_add {suffix} {tag} is not x + cuda_prolong(e) bit for bit")
+            del pair
+            timed(f"prolong_add3d {suffix}",
+                  lambda: cuda_transfer.cuda_prolong_add(x, e, cent),
+                  lambda: transfer.prolong_add_plain(x, e, cent),
+                  lambda: x + cuda_transfer.cuda_prolong(e, cent))
             if dtype == torch.float32:
                 timed("restrict3d batch6 f32",
                       lambda: cuda_transfer.cuda_restrict(t, cent),
@@ -1632,14 +1681,21 @@ def phase_distributed():
 
 #: the solve kernels' work per 512^3 float32 call: planes moved (each read or
 #: written once, in units of the 512^3 volume) and float operations per fine
-#: cell, counted from their sources
+#: cell, counted from their sources (the prolongation: a z lerp of 3 per fine
+#: cell, and the y lerp and two x lerps of each coarse plane, 9, shared by
+#: two fine planes)
 SOLVE_WORK = {
     "stencil_halfsweep": (13, 29),
     "stencil_residual": (13, 30),
     "restrict3d": (1 + 1 / 8, 21),
-    "prolong3d": (1 / 8 + 1, 22),
+    "prolong3d": (1 / 8 + 1, 8),
     "assemble_compressed": (16, 60),
 }
+
+
+#: the prolongation's add form at 512^3: reads x and e, writes x + P e
+PROLONG_ADD_PLANES = 2 + 1 / 8
+PROLONG_ADD_OPS = SOLVE_WORK["prolong3d"][1] + 1
 
 
 def main():
@@ -1688,8 +1744,9 @@ def main():
         tag = tag[0] if tag else "512^3"
         shape, dtype = list(SHAPE), "float32"
         if name in SOLVE_WORK:
-            ms, plain_ms = timings[(case, tag)]
-            lib_ms = None  # no single PyTorch call computes these functions
+            # a library call only for the all-cell transfers (none computes
+            # the stencil or the assembly)
+            ms, plain_ms, lib_ms = timings[(case, tag)]
             planes, ops = SOLVE_WORK[name]
             nbytes, nops = planes * cells * 4, ops * cells
         elif name in EXTRA_CASES:
@@ -1709,6 +1766,22 @@ def main():
             first = "fd_vesselness first f32"
             row["first_ms"], row["first_plain_ms"], _ = timings[(first, "512^3")]
             row["first_bound_ms"] = bound_ms(*work[(first, "512^3")])[0]
+        bf16 = (case.replace("f32", "bf16"), tag)
+        if bf16 in timings:
+            # the solve kernels move the same values in half the bytes
+            work16 = (nbytes / 2, nops) if name in SOLVE_WORK else work[bf16][:2]
+            row["bf16"] = dict(zip(("ms", "plain_ms", "library_ms"), timings[bf16]),
+                               bound_ms=bound_ms(*work16)[0], max_abs_err=errs[bf16])
+        if name == "prolong3d":
+            # the add form x + P e, the V-cycle's correction; library_ms is
+            # the two launches it replaces, x + cuda_prolong(e)
+            for dt, item in (("f32", 4), ("bf16", 2)):
+                a_ms, a_plain, a_pair = timings[(f"prolong_add3d {dt}", tag)]
+                row.setdefault("add_form", {})[dt] = {
+                    "ms": a_ms, "plain_ms": a_plain, "pair_ms": a_pair,
+                    "bound_ms": bound_ms(PROLONG_ADD_PLANES * cells * item,
+                                         PROLONG_ADD_OPS * cells)[0],
+                    "max_abs_err": errs[(f"prolong_add3d {dt}", tag)]}
         for extra in EXTRA_CASES.get(name, ()):
             e_ms, e_plain = timings[(case, extra)]
             e_bytes, e_ops, e_shape, _ = work[(case, extra)]

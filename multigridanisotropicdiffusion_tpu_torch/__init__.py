@@ -29,7 +29,7 @@ runs the same program with the whole input and gets back its block):
 
 from .core.grids import CELL, VERTEX, GridLevel, build_level_descriptors
 from .core.stencil import StencilOperator, apply_stencil, l2_norm, residual, stencil_offsets
-from .core.symfield import as_sym_planes, sym_pairs
+from .core.symfield import as_sym_planes, sym_from_matrix, sym_pairs, sym_to_matrix
 from .models.filters import MultigridAnisotropicDiffusionImageFilter, VEDMultigridImageFilter
 from .models.mad import (
     DCA,
@@ -70,5 +70,6 @@ __all__ = [
     "build_hierarchy", "build_level_descriptors", "factorize_devices", "gather_field",
     "initialize_multihost", "jacobi_sweep", "l2_norm", "level_spec", "mad_diffusion",
     "make_grid_mesh", "make_multihost_grid_mesh", "prolong", "rb_gauss_seidel_sweep",
-    "residual", "restrict", "shard_field", "stencil_offsets", "sym_pairs", "ved",
+    "residual", "restrict", "shard_field", "stencil_offsets", "sym_from_matrix", "sym_pairs",
+    "sym_to_matrix", "ved",
 ]

@@ -84,6 +84,10 @@ class StencilOperator:
         """Coefficient plane of the center offset (the matrix diagonal)."""
         return self.coeffs[self.center_index]
 
+    def offset_index(self, off: Offset) -> int:
+        """Index of the coefficient plane of offset ``off``."""
+        return self.offsets.index(tuple(off))
+
     def astype(self, dtype: torch.dtype) -> "StencilOperator":
         return StencilOperator(self.coeffs.to(dtype), self.offsets)
 

@@ -37,6 +37,35 @@ def sym_component(planes: torch.Tensor, ndim: int, d: int, d2: int) -> torch.Ten
     return planes[sym_index(ndim, d, d2)]
 
 
+def sym_from_matrix(tensor) -> torch.Tensor:
+    """``(D, D, *shape)`` or ``(*shape, D, D)`` matrix field -> the canonical
+    ``(S, *shape)`` stack.
+
+    The leading-component layout is tried first, as in the JAX package.  Only
+    the lower triangle is read (as the reference filter's SetDiffusionTensor
+    does, itkMultigridAnisotropicDiffusionImageFilter.hxx:86-94).  Numpy
+    arrays and torch tensors are both accepted.
+    """
+    t = _as_tensor(tensor)
+    shape = tuple(t.shape)
+    for ndim in (3, 2):
+        if len(shape) != ndim + 2:
+            continue
+        if shape[:2] == (ndim, ndim):
+            return torch.stack([t[j, i] for i, j in sym_pairs(ndim)]).contiguous()
+        if shape[-2:] == (ndim, ndim):
+            return torch.stack([t[..., j, i] for i, j in sym_pairs(ndim)]).contiguous()
+    raise ValueError(f"cannot interpret shape {shape} as a symmetric 2D/3D tensor field")
+
+
+def sym_to_matrix(planes: torch.Tensor) -> torch.Tensor:
+    """``(S, *shape)`` stack (or a sequence of S planes) -> the symmetric
+    ``(D, D, *shape)`` matrix field."""
+    ndim = {3: 2, 6: 3}[len(planes)]
+    return torch.stack([torch.stack([planes[sym_index(ndim, i, j)] for j in range(ndim)])
+                        for i in range(ndim)])
+
+
 def _as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype)

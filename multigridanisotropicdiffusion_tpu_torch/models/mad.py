@@ -56,7 +56,7 @@ from ..ops.dca import assemble_dca
 from ..ops.galerkin import assemble_galerkin_parabolic, prune_stored_operator
 from ..ops.matfree import MatrixFreeDCAOperator
 from ..ops.smoothers import DEFAULT_JACOBI_WEIGHT, make_residual, make_smoother
-from ..ops.transfer import prolong, restrict, restrict_tensor
+from ..ops.transfer import prolong, prolong_add, restrict, restrict_tensor
 
 VCYCLE = "vcycle"
 FMG = "fmg"
@@ -225,13 +225,17 @@ def build_hierarchy(
 
 class Transfers(NamedTuple):
     """The level hooks of the cycles: ``restrict(r, fine_level)``,
-    ``prolong(e, fine_level)`` and ``solve_coarse(solver, b, level)``.  The
-    standard ones apply ops.transfer / ops.coarse to whole fields; the
-    distributed solve's act on blocks (:mod:`..parallel.transfer`)."""
+    ``prolong(e, fine_level)``, ``solve_coarse(solver, b, level)`` and
+    ``prolong_add(x, e, fine_level)``, the V-cycle's correction ``x +
+    prolong(e, fine_level)`` into a new tensor (one kernel pass on the
+    kernel path).  The standard ones apply ops.transfer / ops.coarse to
+    whole fields; the distributed solve's act on blocks
+    (:mod:`..parallel.transfer`)."""
 
     restrict: object
     prolong: object
     solve_coarse: object
+    prolong_add: object
 
 
 def _standard_transfers(levels: Tuple[GridLevel, ...], use_kernels: bool = False) -> Transfers:
@@ -239,6 +243,8 @@ def _standard_transfers(levels: Tuple[GridLevel, ...], use_kernels: bool = False
         restrict=lambda r, fl: restrict(r, levels[fl + 1].centering, use_kernels),
         prolong=lambda e, fl: prolong(e, levels[fl + 1].centering, use_kernels),
         solve_coarse=lambda solver, b, level: coarse_solve(solver, b),
+        prolong_add=lambda x, e, fl: prolong_add(x, e, levels[fl + 1].centering,
+                                                 use_kernels),
     )
 
 
@@ -279,7 +285,7 @@ def v_cycle(
     rc = transfers.restrict(r, level)
     ec = v_cycle(hier, levels, smooth, iterations_per_grid, torch.zeros_like(rc),
                  rc, level + 1, resid, use_kernels, transfers)
-    x = x + transfers.prolong(ec, level)
+    x = transfers.prolong_add(x, ec, level)
 
     for _ in range(iterations_per_grid):
         x = sm(op, x, b)

@@ -142,7 +142,7 @@ def mad_diffusion_verbose(
         x = smooth_and_report(op, x, b, level, bnorm)
         rc = transfers.restrict(_at(resid, level)(op, x, b), level)
         ec = v_cycle(torch.zeros_like(rc), rc, level + 1)
-        x = x + transfers.prolong(ec, level)
+        x = transfers.prolong_add(x, ec, level)
         r = rel(op, x, b, bnorm, level)
         emit(level + 1, f"Level {level}, initial relative residual = {r}")
         if level == 0 and logger is not None:

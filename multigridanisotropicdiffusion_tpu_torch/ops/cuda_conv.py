@@ -15,6 +15,11 @@ The taps are summed in ascending ``j`` with zero taps skipped, in the
 compute dtype (float32 for bf16 storage), and every pass rounds once to the
 storage dtype at its store; the fused y+x pass rounds once, after x.
 
+The fused kernel takes the taps as a list of the non-zero ones in
+ascending order, each with its offset from the centre (:func:`tap_list`),
+and has the main path's radii compiled in (:func:`yx_plan`): the sums run
+over the same taps in the same order as the plain version's.
+
 Each wrapper takes the plain PyTorch version for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.  ``conv_z.launches``,
 ``conv_yx.launches``, ``conv_y.launches`` and ``conv_x.launches`` count
@@ -97,6 +102,37 @@ def _host_taps(taps, dtype: torch.dtype) -> np.ndarray:
     return host
 
 
+#: radii compiled into the fused y+x kernel: the VED's five scales (0.3 to
+#: 2.0) at unit spacing (``ops.hessian.kernel_radius``)
+YX_RADII = (2, 4, 5, 8)
+
+
+def tap_list(taps) -> tuple[np.ndarray, np.ndarray, int]:
+    """The non-zero taps of an odd-length kernel in ascending order: their
+    int32 offsets from the centre, their float64 weights, and the radius.
+    The taps ``conv_axis_plain`` sums, in its order."""
+    k = np.asarray(taps, np.float64)
+    if k.ndim != 1 or len(k) % 2 == 0 or len(k) > MAX_TAPS:
+        raise ValueError(f"taps must be an odd-length vector of at most "
+                         f"{MAX_TAPS}, got shape {k.shape}")
+    r = (len(k) - 1) // 2
+    idx = np.flatnonzero(k)
+    if idx.size == 0:
+        raise ValueError("taps are all zero")
+    return (idx - r).astype(np.int32), k[idx], r
+
+
+def yx_plan(taps_y, taps_x):
+    """``(radius, (y list), (x list))`` for the fused kernel: ``radius`` is
+    the compiled radius when both axes have the same radius, one of
+    :data:`YX_RADII`, and no zero tap (the lists are then the dense taps),
+    else 0 (the generic form); each list is :func:`tap_list`'s."""
+    ly, lx = tap_list(taps_y), tap_list(taps_x)
+    r = ly[2]
+    dense = all(len(w) == 2 * r + 1 for _, w, _ in (ly, lx))
+    return (r if dense and lx[2] == r and r in YX_RADII else 0), ly, lx
+
+
 def _check(name: str, u: torch.Tensor) -> None:
     require_cuda(name, u)
     if u.dim() != 3:
@@ -136,12 +172,14 @@ def conv_yx(u: torch.Tensor, taps_y, taps_x) -> torch.Tensor:
     if u.device.type == "cpu":
         return conv_yx_plain(u, taps_y, taps_x)
     _check("conv_yx", u)
-    hy, hx = _host_taps(taps_y, u.dtype), _host_taps(taps_x, u.dtype)
+    radius, (offy, wy, ry), (offx, wx, rx) = yx_plan(taps_y, taps_x)
+    wdt = np.float64 if u.dtype == torch.float64 else np.float32
+    wy, wx = wy.astype(wdt), wx.astype(wdt)
     out = torch.empty_like(u)
     err = kernel("mad_conv_yx", u.dtype)(
-        u.data_ptr(), out.data_ptr(), *u.shape, hy.ctypes.data,
-        len(np.asarray(taps_y)), hx.ctypes.data, len(np.asarray(taps_x)),
-        stream_of(u),
+        u.data_ptr(), out.data_ptr(), *u.shape, radius,
+        wy.ctypes.data, offy.ctypes.data, len(wy), ry,
+        wx.ctypes.data, offx.ctypes.data, len(wx), rx, stream_of(u),
     )
     check_launch(err, "conv_yx")
     conv_yx.launches += 1

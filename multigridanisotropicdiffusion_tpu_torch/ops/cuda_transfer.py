@@ -7,8 +7,10 @@ X % 256 gate.  The kernels read per-axis tap tables built on the host from
 the 1-D transfer matrices (:func:`.transfer.restrict_taps`,
 :func:`.transfer.prolong_taps`) and cached on the device per shape.  A
 leading batch axis is allowed: ``(B, Z, Y, X)`` restricts B fields in one
-launch.  Each wrapper takes the plain version for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises.
+launch.  :func:`cuda_prolong_add` is the prolongation's add form, ``x + P
+e`` in one pass (the V-cycle's correction), bit for bit ``x +
+cuda_prolong(e)``.  Each wrapper takes the plain version for a CPU tensor;
+for a CUDA tensor it launches the kernel or raises.
 
 The block form (:func:`restrict_block`, :func:`prolong_block`) serves the
 distributed solve (:mod:`..parallel.transfer`): the same kernels on one
@@ -18,7 +20,8 @@ whose device copies it keeps.  Their plain version is
 :func:`.transfer.apply_taps_plain`.
 
 ``cuda_restrict.launches`` and ``cuda_prolong.launches`` count launches,
-the block form's included.
+the block form's included; ``cuda_prolong.launches`` counts the add form's
+too (one kernel, B4).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from .transfer import (
     apply_taps_plain,
     coarse_size,
     fine_size,
+    prolong_add_plain,
     prolong_plain,
     prolong_taps,
     restrict_plain,
@@ -102,16 +106,26 @@ def cuda_restrict(x: torch.Tensor, centering: Tuple[str, ...]) -> torch.Tensor:
 cuda_restrict.launches = 0
 
 
+#: the fewest fine planes a prolongation block runs (``kPZ`` in
+#: ``csrc/transfer.cu``: 16, 64 in bf16): bounds the launch's z extent
+PROLONG_PLANES = 16
+
+
+def _prolong_shapes(name, e, centering):
+    coarse = tuple(e.shape[-3:])
+    fine = tuple(fine_size(n, c) for n, c in zip(coarse, centering))
+    batch = math.prod(e.shape[:-3])
+    if batch * -(-fine[0] // PROLONG_PLANES) > 65535:
+        raise ValueError(f"{name}: batch * Z of the fine field too large")
+    return coarse, fine, batch
+
+
 def cuda_prolong(x: torch.Tensor, centering: Tuple[str, ...]) -> torch.Tensor:
     """Linear prolongation ``P e`` over the trailing three axes."""
     if x.device.type == "cpu":
         return prolong_plain(x, centering)
     _check("cuda_prolong", x, centering)
-    coarse = tuple(x.shape[-3:])
-    fine = tuple(fine_size(n, c) for n, c in zip(coarse, centering))
-    batch = math.prod(x.shape[:-3])
-    if batch * fine[0] > 65535:
-        raise ValueError(f"cuda_prolong: batch * Z of the fine field too large")
+    coarse, fine, batch = _prolong_shapes("cuda_prolong", x, centering)
     out = torch.empty((*x.shape[:-3], *fine), dtype=x.dtype, device=x.device)
     err = kernel("mad_prolong3d", x.dtype)(
         x.data_ptr(), out.data_ptr(), batch, *coarse, *fine,
@@ -124,6 +138,32 @@ def cuda_prolong(x: torch.Tensor, centering: Tuple[str, ...]) -> torch.Tensor:
 
 
 cuda_prolong.launches = 0
+
+
+def cuda_prolong_add(x: torch.Tensor, e: torch.Tensor,
+                     centering: Tuple[str, ...]) -> torch.Tensor:
+    """``x + P e`` over the trailing three axes in one pass, into a new
+    tensor (``x`` is left as it is): ``P e`` is summed as in
+    :func:`cuda_prolong` and rounded to the storage dtype, the add runs in the
+    compute dtype and rounds once, so the result is bit for bit ``x +
+    cuda_prolong(e)``.  Counts on ``cuda_prolong.launches``."""
+    if x.device.type == "cpu" and e.device.type == "cpu":
+        return prolong_add_plain(x, e, centering)
+    _check("cuda_prolong_add", e, centering)
+    require_cuda("cuda_prolong_add", e, x)
+    coarse, fine, batch = _prolong_shapes("cuda_prolong_add", e, centering)
+    if tuple(x.shape) != (*e.shape[:-3], *fine):
+        raise ValueError(f"cuda_prolong_add: x of shape {tuple(x.shape)} is not the "
+                         f"prolongation of {tuple(e.shape)} ({fine})")
+    out = torch.empty_like(x)
+    err = kernel("mad_prolong_add3d", x.dtype)(
+        e.data_ptr(), x.data_ptr(), out.data_ptr(), batch, *coarse, *fine,
+        *_table_pointers("prolong", fine, centering, x.dtype, x.device),
+        stream_of(x),
+    )
+    check_launch(err, "cuda_prolong_add")
+    cuda_prolong.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,9 @@ Prolongation, cell (coarse c -> fine 2c)
     fine[2j]   = 3/4 u[j] + 1/4 u[j-1]   (j >= 1)
     fine[2j+1] = 3/4 u[j] + 1/4 u[j+1]   (j <= c-2)
 
-:func:`restrict_plain` and :func:`prolong_plain` are the plain versions of
-the transfer kernels (:mod:`.cuda_transfer`); they act on the trailing
+:func:`restrict_plain`, :func:`prolong_plain` and :func:`prolong_add_plain`
+(``x + P e``) are the plain versions of the transfer kernels
+(:mod:`.cuda_transfer`); they act on the trailing
 ``len(centering)`` axes, so a leading batch axis is allowed.  16-bit storage
 computes in float32 and rounds once, like the kernels.  The kernels read the
 per-axis tap tables built here (:func:`restrict_taps`, :func:`prolong_taps`)
@@ -222,6 +223,13 @@ def prolong_plain(x: torch.Tensor, centering: Sequence[str]) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def prolong_add_plain(x: torch.Tensor, e: torch.Tensor,
+                      centering: Sequence[str]) -> torch.Tensor:
+    """``x + P e`` (the V-cycle's correction): the plain version of the
+    prolongation kernel's add form (:func:`.cuda_transfer.cuda_prolong_add`)."""
+    return x + prolong_plain(e, centering)
+
+
 def apply_taps_plain(x: torch.Tensor, tables, order: Sequence[int]) -> torch.Tensor:
     """A transfer given by explicit per-axis tap tables over the trailing
     ``len(tables)`` axes, one axis at a time in ``order``: along axis d,
@@ -278,6 +286,18 @@ def prolong(x: torch.Tensor, centering: Sequence[str],
 
         return cuda_prolong(x, tuple(centering))
     return prolong_plain(x, centering)
+
+
+def prolong_add(x: torch.Tensor, e: torch.Tensor, centering: Sequence[str],
+                use_kernels: bool = False) -> torch.Tensor:
+    """``x + prolong(e)`` into a new tensor; with ``use_kernels`` a 3D
+    correction is one pass of the prolongation kernel's add form, bit for
+    bit ``x + prolong(e, centering, True)``."""
+    if use_kernels and len(centering) == 3:
+        from .cuda_transfer import cuda_prolong_add
+
+        return cuda_prolong_add(x, e, tuple(centering))
+    return prolong_add_plain(x, e, centering)
 
 
 def restrict_tensor(tensor: torch.Tensor, centering: Sequence[str],

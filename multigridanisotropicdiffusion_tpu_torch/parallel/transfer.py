@@ -141,9 +141,10 @@ class Layout(NamedTuple):
 
 
 class BlockTransfers:
-    """``restrict(r, fine_level)``, ``prolong(e, fine_level)`` and
-    ``solve_coarse(solver, b, level)`` on this rank's blocks; the
-    counterpart of ``models.mad.Transfers`` under a mesh."""
+    """``restrict(r, fine_level)``, ``prolong(e, fine_level)``,
+    ``solve_coarse(solver, b, level)`` and ``prolong_add(x, e, fine_level)``
+    (``x + prolong(e)``) on this rank's blocks; the counterpart of
+    ``models.mad.Transfers`` under a mesh."""
 
     def __init__(self, mesh: GridMesh, levels: Sequence[GridLevel],
                  layouts: Sequence[Layout], use_kernels: bool = False):
@@ -214,6 +215,9 @@ class BlockTransfers:
 
     def prolong(self, e: torch.Tensor, fl: int) -> torch.Tensor:
         return self._apply(PROLONG, e, fl)
+
+    def prolong_add(self, x: torch.Tensor, e: torch.Tensor, fl: int) -> torch.Tensor:
+        return x + self.prolong(e, fl)
 
     def solve_coarse(self, solver, b: torch.Tensor, level: int) -> torch.Tensor:
         lay = self.layouts[level]

@@ -64,12 +64,16 @@ SIGNATURES = {
     # in, out, batch, in dims (3), out dims (3), starts (3), weights (3), stream
     "mad_restrict3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
     "mad_prolong3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
+    # e, x, out, batch, coarse dims (3), fine dims (3), starts (3), weights
+    # (3), stream
+    "mad_prolong_add3d": (_P, _P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
     # tensor, out, nz, ny, nx, w2 (3), wd (9), stream
     "mad_assemble_compressed": (_P, _P, _I, _I, _I) + (_D,) * 12 + (_STREAM,),
     # in, out, z in, ny, nx, z out, host taps, taps, valid, stream
     "mad_conv_z": (_P, _P, _I, _I, _I, _I, _P, _I, ctypes.c_int, _STREAM),
-    # in, out, nz, ny, nx, host taps y, taps y, host taps x, taps x, stream
-    "mad_conv_yx": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _STREAM),
+    # in, out, nz, ny, nx, compiled radius (0: generic), then per axis (y, x)
+    # host weights, host int32 offsets, taps, radius; stream
+    "mad_conv_yx": (_P, _P, _I, _I, _I, _I) + (_P, _P, _I, _I) * 2 + (_STREAM,),
     # in, out, nz, ny, nx, host taps, taps, stream
     "mad_conv_y": (_P, _P, _I, _I, _I, _P, _I, _STREAM),
     "mad_conv_x": (_P, _P, _I, _I, _I, _P, _I, _STREAM),

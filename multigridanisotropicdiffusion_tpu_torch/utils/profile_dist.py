@@ -34,7 +34,7 @@ GROUPS = {
                                 "stencil_kernel<__nv_bfloat16, false, true>",
                                 "stencil_kernel<__nv_bfloat16, true, true>"),
     "B1/B2 whole-domain stencil": ("stencil_kernel",),
-    "B3/B4 3D transfers": ("transfer_kernel",),
+    "B3/B4 3D transfers": ("restrict_kernel", "prolong_kernel"),
 }
 
 

@@ -10,6 +10,8 @@ the kernels' times; one stream), the device's idle share and the device
 time by kernel, grouped by the port's kernels.  The card's name and power
 limit come first.  Needs a CUDA device.
 
+* the 512^3 solve to 1e-6, ``MADConfig.cuda()`` (compressed DCA levels,
+  the main path);
 * the 512^3 solve to 1e-6 with collapsed Galerkin levels,
   ``MADConfig.cuda(coarse_operator='galerkin')``;
 * the 8192^2 2D solve to 1e-6, ``MADConfig.cuda()``.
@@ -26,6 +28,7 @@ import torch
 from .profile_ved import _device_us
 
 CASES = (
+    ("dca 512^3", (512, 512, 512), {}),
     ("galerkin collapsed 512^3", (512, 512, 512), dict(coarse_operator="galerkin")),
     ("dca 8192^2", (8192, 8192), {}),
 )
@@ -34,7 +37,7 @@ GROUPS = {
     "B1/B2 compressed 3D stencil": ("stencil_kernel",),
     "B12 stored 3D stencil": ("stored_kernel",),
     "B13 2D stencil": ("compressed2d_kernel", "stored2d_kernel"),
-    "B3/B4 3D transfers": ("transfer_kernel",),
+    "B3/B4 3D transfers": ("restrict_kernel", "prolong_kernel"),
 }
 
 

@@ -24,10 +24,11 @@ import torch
 SHAPE = (512, 512, 512)
 #: kernel-name fragments of each group
 GROUPS = {
-    "pipeline kernels (B6-B11)": ("conv_z_kernel", "conv_tile_kernel",
+    "pipeline kernels (B6-B11)": ("conv_z_kernel", "conv_tile_kernel", "conv_yx_kernel",
                                   "fd_vesselness_kernel", "tensor_assembly_kernel",
                                   "fd_hessian_kernel"),
-    "solve (B1-B5)": ("stencil_kernel", "transfer_kernel", "assemble_kernel"),
+    "solve (B1-B5)": ("stencil_kernel", "restrict_kernel", "prolong_kernel",
+                      "assemble_kernel"),
 }
 
 

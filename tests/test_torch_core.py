@@ -61,6 +61,40 @@ def test_symfield_round_trip(ndim):
     assert symfield.sym_pairs(ndim) == jsym.sym_pairs(ndim)
 
 
+@pytest.mark.parametrize("ndim,layout", [(2, "lead"), (2, "trail"), (3, "lead"),
+                                         (3, "trail")])
+def test_public_names_match_jax(ndim, layout):
+    """``sym_from_matrix``, ``sym_to_matrix`` and
+    ``StencilOperator.offset_index`` against the JAX package's, and the
+    round trip matrix -> stack -> matrix."""
+    import multigridanisotropicdiffusion_tpu_torch as madt
+
+    rng = np.random.default_rng(10 + ndim)
+    shape = (4, 5, 6)[:ndim]
+    mat = make_spd_tensor_field(rng, shape, ndim)  # (*shape, D, D), symmetric
+    if layout == "lead":
+        mat = np.moveaxis(np.moveaxis(mat, -1, 0), -1, 0)  # (D, D, *shape)
+    planes = madt.sym_from_matrix(mat)
+    jplanes = jsym.sym_from_matrix(jnp.asarray(mat))
+    assert planes.shape == (symfield.sym_size(ndim), *shape)
+    np.testing.assert_array_equal(planes.numpy(), np.stack([np.asarray(p) for p in jplanes]))
+    assert torch.equal(madt.sym_from_matrix(torch.as_tensor(mat)), planes)
+    full = madt.sym_to_matrix(planes)
+    np.testing.assert_array_equal(full.numpy(), np.asarray(jsym.sym_to_matrix(jplanes)))
+    lead = mat if layout == "lead" else np.moveaxis(np.moveaxis(mat, -1, 0), -1, 0)
+    np.testing.assert_array_equal(full.numpy(), lead)
+    assert torch.equal(madt.sym_from_matrix(full), planes)
+    assert torch.equal(madt.sym_to_matrix(tuple(planes)), full)
+    with pytest.raises(ValueError):
+        madt.sym_from_matrix(np.zeros((4, *shape)))
+    for radius in (1, 2):
+        offsets = stencil.stencil_offsets(ndim, radius)
+        op = stencil.StencilOperator(torch.zeros((len(offsets), *shape)), offsets)
+        jop = jstencil.StencilOperator(jnp.zeros((len(offsets), *shape)), offsets)
+        for off in offsets:
+            assert op.offset_index(list(off)) == jop.offset_index(off) == offsets.index(off)
+
+
 def test_symfield_rejects_bad_shapes():
     with pytest.raises(ValueError):
         symfield.as_sym_planes(np.zeros((4, 4, 3, 3)), (4, 5))

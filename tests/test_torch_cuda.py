@@ -10,6 +10,8 @@ bf16 ulp of each reference value (both compute in float32 and round once),
 with the float32 floor for values near zero.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -87,6 +89,37 @@ def test_kernels_match_plain(device, level, dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("cent", list(itertools.product("cv", repeat=3)), ids="".join)
+def test_prolong_every_centring_mix(device, cent, dtype):
+    """B4 on each per-axis centring mix, on odd coarse shapes (partial
+    16-byte rows) and on rows of whole 16-byte vectors, several blocks of
+    fine planes, with and without a batch of 6: ``P e`` within the bounds
+    above of the plain version; the add form bit for bit ``x +
+    cuda_prolong(e)``, also with an ``x`` that is not 16-byte aligned."""
+    gen = torch.Generator(device=device).manual_seed(sum(c == "c" for c in cent))
+    for coarse, lead in (((5, 7, 9), ()), ((17, 5, 16), ()), ((5, 7, 9), (6,)),
+                         ((17, 5, 16), (6,))):
+        fine = tuple(transfer.fine_size(n, c) for n, c in zip(coarse, cent))
+        e = torch.randn((*lead, *coarse), generator=gen, device=device,
+                        dtype=torch.float64).to(dtype)
+        x = torch.randn((*lead, *fine), generator=gen, device=device,
+                        dtype=torch.float64).to(dtype)
+        before = cuda_transfer.cuda_prolong.launches
+        p = cuda_transfer.cuda_prolong(e, cent)
+        _check(p, transfer.prolong_plain(e, cent))
+        got = cuda_transfer.cuda_prolong_add(x, e, cent)
+        assert got.dtype == dtype and torch.equal(got, x + p)
+        _check(got, transfer.prolong_add_plain(x, e, cent))
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+        shifted = flat[1:].view(x.shape)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 != 0
+        assert torch.equal(cuda_transfer.cuda_prolong_add(shifted, e, cent), x + p)
+        torch.cuda.synchronize()
+        assert cuda_transfer.cuda_prolong.launches - before == 3
+
+
 def test_kernel_wrappers_refuse_bad_input(device):
     op = assemble_compressed_dca(torch.ones((6, 8, 8, 8), device=device), (1.0,) * 3, 0.1)
     x = torch.ones((8, 8, 8), device=device)
@@ -96,6 +129,11 @@ def test_kernel_wrappers_refuse_bad_input(device):
         cuda_smoothers.halfsweep(op, x.transpose(0, 2), x, 0)
     with pytest.raises(ValueError):
         cuda_transfer.cuda_restrict(torch.ones((8, 8), device=device), ("c", "c"))
+    with pytest.raises(ValueError):
+        cuda_transfer.cuda_prolong_add(x, torch.ones((4, 4, 5), device=device), ("c",) * 3)
+    with pytest.raises(ValueError):
+        cuda_transfer.cuda_prolong_add(x.cpu(), torch.ones((4, 4, 4), device=device),
+                                       ("c",) * 3)
     with pytest.raises(TypeError, match="GridMesh"):
         mad_diffusion(torch.ones((16, 16), device=device), torch.ones((3, 16, 16)),
                       config=MADConfig.cuda(), device=device, mesh=object())

@@ -16,8 +16,14 @@ import pytest
 import torch
 
 from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, stencil_offsets
-from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers, cuda_stencil_stored
+from multigridanisotropicdiffusion_tpu_torch.ops import (
+    cuda_smoothers,
+    cuda_stencil_stored,
+    cuda_transfer,
+    transfer,
+)
 from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
+from multigridanisotropicdiffusion_tpu_torch.parallel.transfer import PROLONG, _axis_plan
 
 from .torch_dist_workers import cuda_worker, run_ranks
 
@@ -101,6 +107,35 @@ def test_b14_wrappers_refuse_what_the_kernel_does_not_take(device):
     op2 = StencilOperator(torch.zeros((len(offsets), 4, 5, 6), device=device), offsets)
     with pytest.raises(ValueError):
         cuda_stencil_stored.halfsweep_local(op2, x, b, 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cent", [("c", "c", "c"), ("v", "c", "v")])
+def test_prolong_block_matches_plain(device, cent, dtype):
+    """B4 on the blocks of a prolongation split along z on two ranks
+    (``parallel/transfer.py``'s plans: starts shifted into the halo-extended
+    block; the vertex axis padded 33 -> 34 with a pad row of weight 0)
+    against the plain version of the block form."""
+    fine = (33 if cent[0] == "v" else 32, 16, 17 if cent[2] == "v" else 18)
+    coarse = tuple(transfer.coarse_size(n, c) for n, c in zip(fine, cent))
+    padded = (-(-fine[0] // 2) * 2, -(-coarse[0] // 2) * 2)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for rank in (0, 1):
+        plans = [_axis_plan(PROLONG, fine[0], cent[0], padded[1], padded[0], True, True,
+                            2, rank)]
+        plans += [_axis_plan(PROLONG, fine[d], cent[d], coarse[d], fine[d], False, False,
+                             1, 0) for d in (1, 2)]
+        ext = (padded[1] // 2 + sum(plans[0].recv), coarse[1], coarse[2])
+        tables = tuple((ax.start, ax.weights) for ax in plans)
+        block = torch.randn(ext, generator=gen, device=device,
+                            dtype=torch.float64).to(dtype)
+        before = cuda_transfer.cuda_prolong.launches
+        got = cuda_transfer.prolong_block(
+            block, cuda_transfer.BlockTables(tables, 2, dtype, block.device))
+        _check(got, transfer.apply_taps_plain(block, tables, (2, 1, 0)))
+        torch.cuda.synchronize()
+        assert got.shape == (padded[0] // 2, fine[1], fine[2])
+        assert cuda_transfer.cuda_prolong.launches - before == 1
 
 
 def _two_ranks(tmp_path, backend):

@@ -101,6 +101,31 @@ def test_conv_kernels_match_plain(device, shape, sigma, spacing, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(37, 45, 51), (6, 40, 128), (5, 33, 263)])
+@pytest.mark.parametrize("sigma,spacing,pad", [
+    (0.3, 1.0, 0), (0.775, 1.0, 0), (1.245, 1.0, 0), (2.0, 1.0, 0),  # r = 2, 4, 5, 8
+    (2.0, 0.25, 0),    # r = 32
+    (16.0, 1.0, 0),    # r = 64, the cap
+    (0.482, 1.0, 3),   # r = 2 zero-padded to 5
+])
+def test_conv_yx_matches_plain_bit_for_bit(device, shape, sigma, spacing, pad, dtype):
+    """B7, the fused y+x pass: the compiled radii and the generic form (r =
+    32, 64, zero-padded taps, different radii on y and x) on odd shapes and
+    on rows of whole 16-byte vectors, equal to the plain version."""
+    u = _volume(shape, device, dtype=dtype)
+    taps = np.pad(gaussian_kernels_1d(sigma, spacing)[0], (pad, pad))
+    other = gaussian_kernels_1d(0.775, 1.0)[0]
+    before = cuda_conv.conv_yx.launches
+    for a, b in ((taps, taps), (taps, other), (other, taps)):
+        got = cuda_conv.conv_yx(u, a, b)
+        want = cuda_conv.conv_yx_plain(u, a, b)
+        _check(got, want)
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv_yx.launches - before == 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("shape,sigma,spacing", [
     ((37, 45, 51), 2.0, 1.0),      # odd shape, r = 8
     ((20, 17, 33), 2.0, 0.25),     # r = 32
@@ -111,8 +136,10 @@ def test_conv_axis_kernels_match_plain(device, shape, sigma, spacing, dtype):
     every derivative order (g, g1, g2)."""
     u = _volume(shape, device, dtype=dtype)
     for taps in gaussian_kernels_1d(sigma, spacing):
-        _check(cuda_conv.conv_y(u, taps), cuda_conv.conv_y_plain(u, taps))
-        _check(cuda_conv.conv_x(u, taps), cuda_conv.conv_x_plain(u, taps))
+        for got, want in ((cuda_conv.conv_y(u, taps), cuda_conv.conv_y_plain(u, taps)),
+                          (cuda_conv.conv_x(u, taps), cuda_conv.conv_x_plain(u, taps))):
+            _check(got, want)
+            assert torch.equal(got, want)
     torch.cuda.synchronize()
 
 

@@ -72,6 +72,54 @@ def test_conv_yx_plain_matches_the_pallas_kernel():
     _close(cuda_conv.conv_yx(torch.as_tensor(u), gy, gx), want)
 
 
+@pytest.mark.parametrize("case", ["scales", "zero-padded", "r=32", "r=64", "mixed radii"])
+def test_conv_yx_tap_lists_and_radius_dispatch(case):
+    """B7's host side: each tap list is the dense taps' non-zero entries in
+    ascending order (rebuilt, it is the dense list; summed in that order
+    over shifted slices, it is ``conv_axis_plain`` bit for bit), and the
+    compiled radius is chosen exactly for the main path's scales at unit
+    spacing (dense taps, one radius on both axes, r in 2, 4, 5, 8)."""
+    main = [hessian.gaussian_kernels_1d(s, 1.0)[0] for s in (0.3, 0.482, 0.775, 1.245, 2.0)]
+    if case == "scales":
+        pairs = [(g, g, hessian.kernel_radius(s, 1.0))
+                 for g, s in zip(main, (0.3, 0.482, 0.775, 1.245, 2.0))]
+        assert [r for *_, r in pairs] == [2, 2, 4, 5, 8]
+    elif case == "zero-padded":
+        pairs = [(np.pad(main[0], (3, 3)), np.pad(main[0], (3, 3)), 0),
+                 (main[3], np.pad(main[1], (3, 3)), 0)]
+    elif case == "r=32":
+        g = hessian.gaussian_kernels_1d(2.0, 0.25)[0]
+        pairs = [(g, g, 0), (hessian.gaussian_kernels_1d(2.0, 0.25)[2], main[1], 0)]
+    elif case == "r=64":
+        g = hessian.gaussian_kernels_1d(16.0, 1.0)[0]
+        pairs = [(g, g, 0)]
+    else:
+        pairs = [(main[2], main[3], 0), (hessian.gaussian_kernels_1d(2.0, 0.9)[0], main[4], 0)]
+    u = torch.as_tensor(_field((3, 40, 37), 5)).float()
+    for ty, tx, radius in pairs:
+        got_radius, ly, lx = cuda_conv.yx_plan(ty, tx)
+        assert got_radius == radius
+        for taps, (off, w, r) in ((ty, ly), (tx, lx)):
+            assert off.dtype == np.int32 and r == (len(taps) - 1) // 2
+            assert np.all(np.diff(off) > 0) and np.all(w != 0)
+            dense = np.zeros(len(taps))
+            dense[off + r] = w
+            np.testing.assert_array_equal(dense, taps)
+            if radius:
+                assert len(w) == 2 * radius + 1
+        off, w, r = ly
+        up = cuda_conv.edge_pad(u, r, 1)
+        acc = None
+        for d, wk in zip(off, w):
+            term = float(wk) * up.narrow(1, int(d) + r, u.shape[1])
+            acc = term if acc is None else acc + term
+        assert torch.equal(acc, cuda_conv.conv_axis_plain(u, ty, 1))
+    with pytest.raises(ValueError):
+        cuda_conv.yx_plan(np.zeros(5), main[0])
+    with pytest.raises(ValueError):
+        cuda_conv.yx_plan(np.ones(4), main[0])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_plain_accumulates_in_float32(dtype):
     """16-bit storage sums the taps in float32 and rounds once; the fused y+x

@@ -17,11 +17,14 @@ from multigridanisotropicdiffusion_tpu.core.grids import (
 from multigridanisotropicdiffusion_tpu.core.symfield import as_sym_planes as jplanes
 from multigridanisotropicdiffusion_tpu.models import mad as jmad
 from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
+from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
 from multigridanisotropicdiffusion_tpu_torch.models.mad import (
     FMG,
     SMOOTHER,
     VCYCLE,
+    _single_device_ops,
     print_residual_trace,
+    v_cycle,
 )
 from multigridanisotropicdiffusion_tpu_torch.ops.cuda_assemble import (
     cuda_assemble_compressed_dca,
@@ -108,6 +111,40 @@ def test_jax_hierarchy_carried_across():
     assert int(got.num_cycles[0]) == int(jres.num_cycles[0])
     assert _rel_l2(got.output, own.output) <= 1e-12
     assert _rel_l2(got.output, jres.output) <= 1e-10
+
+
+def test_v_cycle_through_the_prolong_add_hook_matches_jax():
+    """Two V-cycles on the JAX package's operators of a mixed-centring 3D
+    hierarchy, the correction through the transfers' ``prolong_add`` hook
+    (the add form's plain path on the CPU, no launch), against the JAX
+    package's ``v_cycle``."""
+    shape, spacing = (27, 24, 30), (1.0, 0.5, 2.0)
+    tensor, image = _inputs(shape=shape, seed=5)
+    jlv = jlevels(shape, spacing)
+    jhier = jmad.build_hierarchy(jplanes(jnp.asarray(tensor), shape), jlv, 0.1,
+                                 operator_repr="compressed")
+    hier = hierarchy_from_numpy(jax.device_get(jhier))
+    levels = build_level_descriptors(shape, spacing)
+    assert {c for lv in levels for c in lv.centering} == {"c", "v"}
+    ops = _single_device_ops(levels, MADConfig.cuda(False))
+    calls = []
+
+    def prolong_add(x, e, fl):
+        calls.append(fl)
+        return ops.transfers.prolong_add(x, e, fl)
+
+    transfers = ops.transfers._replace(prolong_add=prolong_add)
+    jsmooth = jmad.make_smoother("gauss_seidel")
+    b = torch.as_tensor(image)
+    x, jx = torch.zeros_like(b), jnp.zeros(shape)
+    before = [f.launches for f in COUNTERS]
+    for _ in range(2):
+        x = v_cycle(hier, levels, ops.smooth, 2, x, b, resid=ops.resid,
+                    use_kernels=True, transfers=transfers)
+        jx = jmad.v_cycle(jhier, jlv, jsmooth, 2, jx, jnp.asarray(image))
+    assert [f.launches for f in COUNTERS] == before
+    assert len(levels) == 3 and calls == [1, 0, 1, 0]
+    assert _rel_l2(x, jx) <= 1e-12
 
 
 @pytest.mark.parametrize("smoother", ["gauss_seidel", "weighted_jacobi"])

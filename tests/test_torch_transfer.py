@@ -1,7 +1,9 @@
 """Port parity, transfers: restriction and prolongation against the JAX
 package's ``ops.transfer`` on every level of a (69, 77, 69) hierarchy (the
-vertex-centred chain), an all-cell 32^3 pair and 2D; and the transfer
-kernels' tap tables against the JAX package's 1-D matrices."""
+vertex-centred chain), an all-cell 32^3 pair and 2D; the transfer kernels'
+tap tables against the JAX package's 1-D matrices; the prolongation's add
+form ``x + P e``; and the library calls that compute the all-cell
+transfers (``chip_smoke.py``'s yardsticks)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from multigridanisotropicdiffusion_tpu_torch.core.grids import (
 from multigridanisotropicdiffusion_tpu_torch.ops import transfer
 from multigridanisotropicdiffusion_tpu_torch.ops.cuda_transfer import (
     cuda_prolong,
+    cuda_prolong_add,
     cuda_restrict,
 )
 
@@ -102,3 +105,69 @@ def test_bf16_plain_transfers_round_once():
         transfer.restrict_plain(u, lv[1].centering),
         transfer.restrict_plain(u.float(), lv[1].centering).bfloat16(),
     )
+
+
+@pytest.mark.parametrize("coarse", [(4, 6, 8), (5, 7, 3), (3, 5, 9)])
+def test_library_forms_are_the_all_cell_transfers(coarse):
+    """The yardsticks ``chip_smoke.py`` times beside B3 and B4 compute their
+    functions on all-cell levels: trilinear ``F.interpolate`` (its clamped
+    source coordinate gives the border row (1)) is ``prolong_plain``, and
+    replicate padding plus a stride-2 ``F.conv3d`` with the ``[1, 3, 3,
+    1] / 8`` product kernel (the replicated plane makes the border row [1/2
+    3/8 1/8]) is ``restrict_plain``, on even and odd coarse sizes."""
+    import torch.nn.functional as F
+
+    cent = (CELL,) * 3
+    rng = np.random.default_rng(sum(coarse))
+    e = torch.as_tensor(rng.normal(size=coarse))
+    got = F.interpolate(e[None, None], scale_factor=2, mode="trilinear",
+                        align_corners=False)[0, 0]
+    want = transfer.prolong_plain(e, cent)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-15 * want.abs().max().item()
+
+    x = torch.as_tensor(rng.normal(size=tuple(2 * n for n in coarse)))
+    w1 = torch.tensor([1.0, 3.0, 3.0, 1.0], dtype=torch.float64) / 8
+    w = (w1[:, None, None] * w1[None, :, None] * w1[None, None, :])[None, None]
+    got = F.conv3d(F.pad(x[None, None], (1,) * 6, mode="replicate"), w, stride=2)[0, 0]
+    want = transfer.restrict_plain(x, cent)
+    assert got.shape == want.shape == coarse
+    assert (got - want).abs().max().item() <= 1e-15 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16], ids=str)
+def test_prolong_add_plain_is_x_plus_prolong(dtype):
+    """The add form's plain path, through the kernel wrapper and the
+    dispatch, is bit for bit ``x + prolong_plain(e)`` (bf16: P e rounded to
+    bf16, then added in float32 and rounded once), without a launch."""
+    lv = VED_LEVELS
+    cent = lv[1].centering
+    rng = np.random.default_rng(9)
+    e = torch.as_tensor(rng.normal(size=lv[1].shape)).to(dtype)
+    x = torch.as_tensor(rng.normal(size=lv[0].shape)).to(dtype)
+    want = x + transfer.prolong_plain(e, cent)
+    assert want.dtype == dtype
+    if dtype == torch.bfloat16:
+        p = transfer.prolong_plain(e, cent)
+        assert torch.equal(want, (x.float() + p.float()).bfloat16())
+    before = cuda_prolong.launches
+    for got in (transfer.prolong_add_plain(x, e, cent),
+                cuda_prolong_add(x, e, cent),
+                transfer.prolong_add(x, e, cent, use_kernels=True),
+                transfer.prolong_add(x, e, cent)):
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert cuda_prolong.launches == before
+
+
+@pytest.mark.parametrize("cent", [("c", "v", "c"), ("v", "c", "v"), ("c", "c", "v")])
+def test_prolong_add_matches_jax(cent):
+    """``x + P e`` on mixed centrings against the JAX package's ``x +
+    prolong(e)`` in float64."""
+    coarse = (5, 6, 7)
+    fine = tuple(transfer.fine_size(n, c) for n, c in zip(coarse, cent))
+    rng = np.random.default_rng(len(set(cent)) + cent.count("c"))
+    e, x = rng.normal(size=coarse), rng.normal(size=fine)
+    got = cuda_prolong_add(torch.as_tensor(x), torch.as_tensor(e), cent)
+    want = jnp.asarray(x) + jtransfer.prolong(jnp.asarray(e), cent)
+    assert tuple(got.shape) == fine
+    assert _rel(got, want) <= 1e-13
