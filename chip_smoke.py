@@ -24,8 +24,10 @@ Phases, one line or more each; any failure exits non-zero:
    prolongation and replicate padding plus a stride-2 ``F.conv3d`` with the
    ``[1, 3, 3, 1] / 8`` product kernel for the restriction (each checked
    against the plain version in float32; cuDNN's TF32 off).  The
-   prolongation's add form ``x + P e`` is held bit for bit to ``x +
-   cuda_prolong(e)`` and timed beside those two launches;
+   restriction is held bit for bit to its plain version (the single volume
+   and the batch of six tensor planes), and the prolongation's add form
+   ``x + P e`` bit for bit to ``x + cuda_prolong(e)``, timed beside those
+   two launches;
 4. reference: a small float64 solve through the kernels against a dense
    direct solve, and the float32 + bf16 path on the same input;
 5. MAD main path: ``mad_diffusion`` at 512^3 with ``MADConfig.cuda()`` to a
@@ -136,9 +138,21 @@ PARAMS = (0.5, 0.5, 5.0)  # VEDConfig's alpha, beta, gamma
 TENSOR_PARAMS = (0.01, 5.0, 10.0)  # epsilon, omega, sensitivity
 #: float operations per output voxel, counted from the kernels' sources
 #: (every add, multiply, compare-select and math-library call as one)
-OPS_FD_VESSELNESS = 170
 OPS_TENSOR_ASSEMBLY = 265
 OPS_FD_HESSIAN = 24
+#: float operations of one standalone call of each math-library function
+#: that B8's formulas make, from its SASS (``utils/sass_count.py --math``,
+#: sm_90a: the call's body, a fused multiply-add as two; cosf's includes its
+#: inline reduction of large arguments)
+MATH_OPS = {"expf": 11, "acosf": 33, "cosf": 29, "sqrtf": 6, "rcp": 5, "div": 11}
+#: B8's float operations as its plain formulas need them, every add,
+#: multiply, abs and compare-select as one: per voxel the FD stencil (24),
+#: the eigenvalues (74, two reciprocals, two sqrtf, acosf, cosf), their
+#: scaling, sort and bright test (14); per bright voxel the vesselness (23,
+#: two reciprocals, four expf, three divisions); a select adds one compare
+OPS_FD_EIGEN = (112 + 2 * MATH_OPS["rcp"] + 2 * MATH_OPS["sqrtf"] + MATH_OPS["acosf"]
+                + MATH_OPS["cosf"])
+OPS_VESSELNESS = 23 + 2 * MATH_OPS["rcp"] + 4 * MATH_OPS["expf"] + 3 * MATH_OPS["div"]
 #: phase 9's expected B6/B10 launches: 8 z slabs x 5 scales x (3 z, 6 y, 6 x)
 GD_LAUNCHES = {"conv_z": 120, "conv_y": 240, "conv_x": 240}
 KERNELS = {
@@ -351,22 +365,6 @@ def bound_ms(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bench_tensor(shape, gen):
-    """bench.py's construction: per voxel G G^T + 2 I with G normal (D x D
-    for a D-dimensional grid), as a symfield-order stack."""
-    import torch
-
-    nd = len(shape)
-    rows = torch.randn((nd, nd, *shape), generator=gen, device="cuda")
-    pairs = [(i, j) for i in range(nd) for j in range(i, nd)]
-    t = torch.empty((len(pairs), *shape), device="cuda")
-    for k, (i, j) in enumerate(pairs):
-        torch.sum(rows[i] * rows[j], dim=0, out=t[k])
-        if i == j:
-            t[k] += 2.0
-    return t
-
-
 def phase_device():
     import torch
 
@@ -414,6 +412,7 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
         cuda_transfer,
         transfer,
     )
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     def timed(name, kernel, plain, library=None):
         got = kernel()
@@ -428,7 +427,7 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
         log(f"    {name} {tag}: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms, library "
             f"{'none' if ms[2] is None else f'{ms[2]:.3f} ms'}")
 
-    t = bench_tensor(shape, gen)
+    t = spd_tensor_field(shape, gen)
     timed("assemble_compressed f32",
           lambda: cuda_assemble.cuda_assemble_compressed_dca(t, spacing, DT).planes,
           lambda: compressed.assemble_compressed_dca(t, spacing, DT).planes)
@@ -452,6 +451,10 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
             all_cell = set(cent) == {CELL}
             w1 = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda", dtype=dtype) / 8
             w_fw = (w1[:, None, None] * w1[None, :, None] * w1[None, None, :])[None, None]
+            # the restriction rounds as its plain version does: bit for bit
+            if not torch.equal(cuda_transfer.cuda_restrict(x, cent),
+                               transfer.restrict_plain(x, cent)):
+                fail(f"restrict3d {suffix} {tag} is not restrict_plain bit for bit")
             timed(f"restrict3d {suffix}",
                   lambda: cuda_transfer.cuda_restrict(x, cent),
                   lambda: transfer.restrict_plain(x, cent),
@@ -472,6 +475,9 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
                   lambda: cuda_transfer.cuda_prolong_add(x, e, cent),
                   lambda: transfer.prolong_add_plain(x, e, cent),
                   lambda: x + cuda_transfer.cuda_prolong(e, cent))
+            if not torch.equal(cuda_transfer.cuda_restrict(t.to(dtype), cent),
+                               transfer.restrict_plain(t.to(dtype), cent)):
+                fail(f"restrict3d batch6 {suffix} {tag} is not restrict_plain bit for bit")
             if dtype == torch.float32:
                 timed("restrict3d batch6 f32",
                       lambda: cuda_transfer.cuda_restrict(t, cent),
@@ -547,9 +553,10 @@ def check_stored_and_2d(gen, errs, timings, work):
         dca,
         galerkin,
     )
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("  stored-operator kernel (B12)")
-    t = bench_tensor(SHAPE, gen)
+    t = spd_tensor_field(SHAPE, gen)
     stored = dca.assemble_dca(t, (1.0,) * 3, DT)
     check_stencil("stored", "512^3 stored DCA", cuda_stencil_stored, stored, gen, errs,
                   timings, work, True)
@@ -577,7 +584,7 @@ def check_stored_and_2d(gen, errs, timings, work):
     del exact
     torch.cuda.empty_cache()
     shape = (69, 77, 69)
-    t = bench_tensor(shape, gen)
+    t = spd_tensor_field(shape, gen)
     for variant in ("collapsed", "exact"):
         hier = build_hierarchy(t, build_level_descriptors(shape), DT, "galerkin",
                                "compressed", galerkin_variant=variant)
@@ -587,13 +594,13 @@ def check_stored_and_2d(gen, errs, timings, work):
                               gen, errs, timings, work, False)
     del t, hier
     log("  2D kernel (B13)")
-    t = bench_tensor(SHAPE_2D, gen)
+    t = spd_tensor_field(SHAPE_2D, gen)
     for form, assemble in (("compressed", compressed.assemble_compressed_dca),
                            ("stored", dca.assemble_dca)):
         check_stencil("2d", f"8192^2 {form}", cuda_stencil2d, assemble(t, (1.0, 1.0), DT),
                       gen, errs, timings, work, True)
     del t
-    t = bench_tensor((1531, 997), gen)
+    t = spd_tensor_field((1531, 997), gen)
     for form, assemble in (("compressed", compressed.assemble_compressed_dca),
                            ("stored", dca.assemble_dca)):
         check_stencil("2d", f"(1531, 997) {form}", cuda_stencil2d,
@@ -672,8 +679,10 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     )
     from multigridanisotropicdiffusion_tpu_torch.ops import cuda_conv, cuda_vesselness
     from multigridanisotropicdiffusion_tpu_torch.ops.cuda_conv import edge_pad
+    from multigridanisotropicdiffusion_tpu_torch.ops.eigen3 import eigvalsh3, sort_by_abs3
     from multigridanisotropicdiffusion_tpu_torch.ops.hessian import (
         fd_factors,
+        fd_planes,
         gaussian_kernels_1d,
         kernel_radius,
         smoothed_field_valid_z,
@@ -725,6 +734,12 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     us1 = smoothed_field_valid_z(u_pad, s1, spacing, radius, use_kernels=True)
     del u_pad
 
+    def bright(us, facs):
+        """Voxels whose two largest-magnitude eigenvalues are negative: those
+        whose vesselness B8 computes (the others' response is 0)."""
+        lam = sort_by_abs3(eigvalsh3(fd_planes(us, facs)))
+        return int(((lam[1] < 0) & (lam[2] < 0)).sum())
+
     # B8, first and select variants
     first = fdv(us1, f1, PARAMS)
     want = cuda_vesselness.fd_vesselness_plain(us1, f1, PARAMS, None, vesselness_measure)
@@ -738,8 +753,9 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
                                                        vesselness_measure))
     n = first[0].numel()
     resp_item = first[0].element_size()
+    bright1 = bright(us1, f1) if timed_runs else 0
     work[key("fd_vesselness first")] = (us1.numel() * item + n * (resp_item + 6 * item),
-                                          OPS_FD_VESSELNESS * n)
+                                          OPS_FD_EIGEN * n + OPS_VESSELNESS * bright1)
     new_k = fdv(us2, f2, PARAMS)[0]
     new_p = cuda_vesselness.fd_vesselness_plain(us2, f2, PARAMS, None, vesselness_measure)[0]
     incoming = (first[0].clone(), first[1].clone())
@@ -760,11 +776,13 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
                                                        vesselness_measure),
            setup=restore)
     # in place: read us and the best response, write the winners' 7 values
+    bright2 = bright(us2, f2) if timed_runs else 0
     work[key("fd_vesselness select")] = (
         us2.numel() * item + n * resp_item + winners * (resp_item + 6 * item),
-        OPS_FD_VESSELNESS * n)
+        (OPS_FD_EIGEN + 1) * n + OPS_VESSELNESS * bright2)
     if timed_runs:
-        log(f"    fd_vesselness select {suffix} {tag}: {winners} of {n} voxels win")
+        log(f"    fd_vesselness select {suffix} {tag}: {winners} of {n} voxels win; "
+            f"bright: {bright1} of {n} (first scale), {bright2} (select scale)")
     del first, incoming, us1, us2
 
     # B9 on the winner
@@ -938,10 +956,11 @@ def phase_reference(gen):
     from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
     from multigridanisotropicdiffusion_tpu_torch.core.stencil import densify
     from multigridanisotropicdiffusion_tpu_torch.ops.dca import assemble_dca
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("== phase 4: small reference solve against a dense direct solve")
     shape, spacing = (14, 13, 12), (1.0, 0.5, 2.0)
-    t = bench_tensor(shape, gen).double()
+    t = spd_tensor_field(shape, gen).double()
     b = torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64) * 255.0
     a = densify(assemble_dca(t, spacing, DT))
     want = torch.linalg.solve(a, b.reshape(-1)).reshape(shape)
@@ -961,8 +980,10 @@ def phase_reference(gen):
 def phase_main(gen):
     import torch
 
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
+
     log("== phase 5: main path, mad_diffusion at 512^3 to 1e-6")
-    tensor = bench_tensor(SHAPE, gen)
+    tensor = spd_tensor_field(SHAPE, gen)
     b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
     launches, _ = solve_pair("dca 512^3", b, tensor, dict(time_step=DT, tolerance=1e-6),
                              STENCIL_3D, max_cycles=50)
@@ -1125,10 +1146,11 @@ def phase_kernel_less(gen):
     from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
     from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
     from multigridanisotropicdiffusion_tpu_torch.models.trace import mad_diffusion_verbose
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("== phase 10: matrix-free operator, Chebyshev smoother and verbose trace at 256^3")
     shape = (256,) * 3
-    tensor = bench_tensor(shape, gen)
+    tensor = spd_tensor_field(shape, gen)
     b = torch.rand(shape, generator=gen, device="cuda") * 255.0
     kw = dict(time_step=DT, tolerance=1e-6)
     summary, ref = [], None
@@ -1319,9 +1341,11 @@ def phase_galerkin(gen):
     variant), then exact."""
     import torch
 
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
+
     log("== phase 7: Galerkin main path, mad_diffusion at 512^3 to 1e-6 with "
         "MADConfig.cuda(coarse_operator='galerkin')")
-    tensor = bench_tensor(SHAPE, gen)
+    tensor = spd_tensor_field(SHAPE, gen)
     b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
     kw = dict(time_step=DT, tolerance=1e-6, coarse_operator="galerkin")
     expect = STENCIL_3D + ("stencil_stored_halfsweep", "stencil_stored_residual")
@@ -1335,7 +1359,7 @@ def phase_galerkin(gen):
         del tensor, b
         torch.cuda.empty_cache()
         shape = (256,) * 3
-        tensor = bench_tensor(shape, gen)
+        tensor = spd_tensor_field(shape, gen)
         b = torch.rand(shape, generator=gen, device="cuda") * 255.0
         summaries.append(solve_pair("galerkin exact 256^3", b, tensor,
                                     dict(kw, galerkin_variant="exact"), expect)[1])
@@ -1350,6 +1374,7 @@ def phase_2d(gen):
     import torch
 
     from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("== phase 8: 2D main path: lena (float64) and 8192^2 (float32)")
     counters = all_counters()
@@ -1374,7 +1399,7 @@ def phase_2d(gen):
         fail("lena through the 2D kernel is off")
     lena = dict(case="lena float64", cycles=n, relres=fin, rel_l2_golden=rel)
     del res, img, tensor, want
-    tensor = bench_tensor(SHAPE_2D, gen)
+    tensor = spd_tensor_field(SHAPE_2D, gen)
     b = torch.rand(SHAPE_2D, generator=gen, device="cuda") * 255.0
     kw = dict(time_step=DT, tolerance=1e-6)
     expect = ("stencil_2d_halfsweep", "stencil_2d_residual")
@@ -1419,9 +1444,10 @@ def dist_sweep(mesh):
         shard_field,
         shard_operator,
     )
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    t = bench_tensor(SHAPE, gen)
+    t = spd_tensor_field(SHAPE, gen)
     op = cuda_assemble.cuda_assemble_compressed_dca(t, (1.0,) * 3, DT)
     del t
     x = torch.randn(SHAPE, generator=gen, device="cuda") * 10.0
@@ -1478,9 +1504,10 @@ def dist_mad(mesh, shape, title, **kw):
     from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
     from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
     from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    tensor = bench_tensor(shape, gen)
+    tensor = spd_tensor_field(shape, gen)
     b = torch.rand(shape, generator=gen, device="cuda") * 255.0
     cfg = MADConfig.cuda(time_step=DT, tolerance=1e-6, max_cycles=50, **kw)
     hier = build_hierarchy(as_sym_planes(tensor, shape, dtype=b.dtype, device="cuda"),

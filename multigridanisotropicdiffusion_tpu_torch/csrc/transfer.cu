@@ -22,11 +22,38 @@
 // A leading batch axis lets the six tensor planes be restricted in one
 // launch.  Bound on the card: device-memory bandwidth (restriction reads 8
 // fine values per coarse value written, prolongation writes 8 fine values
-// per coarse value read).
+// per coarse value read).  The restriction issues ~190 SASS instructions
+// per output (utils/sass_count.py) and waits on each plane's loads between
+// its two barriers, which holds it at ~2/3 of that bound in float and ~1/3
+// in bf16 on an H100.
 //
-// Restriction: one thread per output cell, threads along x, grid over
-// (x-blocks, y-blocks, batch * z), 64-bit element offsets; the repeated tap
-// reads of neighbouring threads hit L1/L2.
+// Restriction: a block of 1024 threads owns a tile of 14 x 64 coarse
+// outputs, one per thread (512 threads and 8 rows in double), and marches
+// down a run of kRZ coarse planes.  The fine tile those outputs read (at
+// most 30 x 130 values, the y and x halo included) is found from the tables
+// once per block and held in shared memory aligned down to a run.  Per
+// coarse plane k, with fine planes s..s+3 (s = sz[k]):
+//   z: each thread owns a run of 4 values of the fine tile (16 bytes of
+//      f32, 8 of bf16; up to 3 runs of 2 f64; one value where a fine row
+//      is not whole runs) and combines the four planes; where
+//      sz[k] == sz[k-1] + 2 it reuses
+//      the partial sum wz[k,0] u[s] + wz[k,1] u[s+1] formed from the
+//      previous plane's two new planes, so only two fine planes are read
+//      per coarse plane, each fine value about once (32-bit offsets inside
+//      a batch plane; the next plane's loads are issued before this plane's
+//      y and x run); the sums go to shared memory;
+//   y, x: each thread combines, for each of its output's four columns, the
+//      four rows, then the four columns, and stores (warps along x: 128
+//      contiguous bytes in float).
+// Every offset, weight and clamp of a thread is computed once per block.  A
+// block whose fine tile does not fit (irregular tables: the block form's pad
+// rows of weight 0 start at 0) computes each output on its own from device
+// memory, in the same order.  Every product and sum rounds on its own (no
+// fused multiply-add), z first, then y, then x, each in ascending tap
+// order, in the compute type, rounded once at the store: restrict_plain's
+// order (ops/transfer.py), and apply_taps_plain's with axes (0, 1, 2).  The
+// tables' zero-weight taps are summed too (as apply_taps_plain sums them);
+// on finite inputs they add a zero, which changes no nonzero sum.
 //
 // Prolongation: one thread owns 16 bytes of one fine row (4 float, 8 bf16 or
 // 2 double outputs) and marches down a run of kPZ fine planes (16; 64 in
@@ -44,6 +71,8 @@
 // version's order, so P e is that of ops/transfer.py's prolong_plain; the
 // add form rounds P e to the storage type, then adds in the compute type and
 // rounds once, so it is bit for bit x + (P e).
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -54,62 +83,6 @@ constexpr int kBY = 8;
 // thread, and its blocks run longer before their stores saturate
 template <typename T>
 constexpr int kPZ = sizeof(T) == 2 ? 64 : 16;
-
-template <typename T>
-__global__ void __launch_bounds__(kBX * kBY)
-    restrict_kernel(const T* __restrict__ in, T* __restrict__ out, int64_t iz,
-                    int64_t iy, int64_t ix, int64_t oz, int64_t oy, int64_t ox,
-                    const int32_t* __restrict__ sz,
-                    const int32_t* __restrict__ sy,
-                    const int32_t* __restrict__ sx,
-                    const typename mad::Compute<T>::type* __restrict__ wz,
-                    const typename mad::Compute<T>::type* __restrict__ wy,
-                    const typename mad::Compute<T>::type* __restrict__ wx) {
-  using A = typename mad::Compute<T>::type;
-  constexpr int kTaps = 4;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBX + threadIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBY + threadIdx.y;
-  if (i >= ox || j >= oy) return;
-  const int64_t batch = blockIdx.z / oz;
-  const int64_t k = blockIdx.z % oz;
-  const T* src = in + batch * (iz * iy * ix);
-
-  A acc = 0;
-#pragma unroll
-  for (int a = 0; a < kTaps; ++a) {
-    const int64_t z = mad::imin(sz[k] + a, iz - 1);
-    A acc_y = 0;
-#pragma unroll
-    for (int c = 0; c < kTaps; ++c) {
-      const int64_t y = mad::imin(sy[j] + c, iy - 1);
-      const T* row = src + (z * iy + y) * ix;
-      A acc_x = 0;
-#pragma unroll
-      for (int e = 0; e < kTaps; ++e) {
-        const int64_t x = mad::imin(sx[i] + e, ix - 1);
-        acc_x += wx[i * kTaps + e] * mad::load(row + x);
-      }
-      acc_y += wy[j * kTaps + c] * acc_x;
-    }
-    acc += wz[k * kTaps + a] * acc_y;
-  }
-  mad::store(out + batch * (oz * oy * ox) + (k * oy + j) * ox + i, acc);
-}
-
-// Two taps, each product and the sum rounded on its own.
-template <typename A>
-__device__ __forceinline__ A lerp2(A w0, A a, A w1, A b) {
-  return mad::add_rn(mad::mul_rn(w0, a), mad::mul_rn(w1, b));
-}
-
-// The value as the storage type rounds it, back in the compute type.
-template <typename T>
-__device__ __forceinline__ typename mad::Compute<T>::type rounded(
-    typename mad::Compute<T>::type v) {
-  T t;
-  mad::store(&t, v);
-  return mad::load(&t);
-}
 
 // 16 bytes of storage type T to and from registers of the compute type;
 // the store rounds each value once.
@@ -164,6 +137,261 @@ struct Vec16<__nv_bfloat16> {
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 };
+
+// The restriction's tile: TY x TX coarse outputs per block of NT threads;
+// its fine tile of at most FY rows of FX values is held aligned down to V
+// values (one load of a run of V values, or V = 1): NV loads per row, FXA
+// values per row in shared memory; MP loads and one output per thread.
+constexpr int kRZ = 8;  // coarse planes per restriction block
+template <typename T, int V>
+struct RTile {
+  static constexpr int NT = sizeof(T) == 8 ? 512 : 1024;
+  // 14 rows: the fine tile is 30 x 34 runs of 4 values, at most one per
+  // thread
+  static constexpr int TY = sizeof(T) == 8 ? 8 : 14;
+  static constexpr int TX = 64;
+  static constexpr int FY = 2 * TY + 2;
+  static constexpr int FX = 2 * TX + 2;
+  static constexpr int NV = (FX + 2 * (V - 1)) / V;
+  static constexpr int FXA = NV * V;
+  static constexpr int MP = (FY * NV + NT - 1) / NT;
+  static_assert(TY * TX <= NT, "at most one output per thread");
+};
+
+// w0 a + w1 b + w2 c + w3 d, each product and sum rounded on its own, in
+// ascending tap order.
+template <typename A>
+__device__ __forceinline__ A taps4(const A* w, A a, A b, A c, A d) {
+  A t = mad::add_rn(mad::mul_rn(w[0], a), mad::mul_rn(w[1], b));
+  t = mad::add_rn(t, mad::mul_rn(w[2], c));
+  return mad::add_rn(t, mad::mul_rn(w[3], d));
+}
+
+// The restriction's run of fine values per load: 4 (16 bytes of float, 8
+// of bf16) or 2 double (16 bytes).
+template <typename T>
+constexpr int kRun = sizeof(T) == 8 ? 2 : 4;
+
+// V values of storage type T at p (aligned to V values where V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void load_run(const T* p, typename mad::Compute<T>::type (&u)[V]) {
+  if constexpr (V == 1) {
+    u[0] = mad::load(p);
+  } else if constexpr (sizeof(T) == 2) {
+    static_assert(V == 4, "4 bf16 per load");
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    u[0] = __uint_as_float(t.x << 16);
+    u[1] = __uint_as_float(t.x & 0xffff0000u);
+    u[2] = __uint_as_float(t.y << 16);
+    u[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else {
+    Vec16<T>::load(p, u);
+  }
+}
+
+// V > 1: every fine row is whole runs of V values (ix % V == 0, input
+// aligned to V values).
+template <typename T, int V>
+__global__ void __launch_bounds__((RTile<T, V>::NT))
+    restrict_kernel(const T* __restrict__ in, T* __restrict__ out, int iz, int iy,
+                    int ix, int oz, int oy, int ox, int zruns,
+                    const int32_t* __restrict__ sz,
+                    const int32_t* __restrict__ sy,
+                    const int32_t* __restrict__ sx,
+                    const typename mad::Compute<T>::type* __restrict__ wz,
+                    const typename mad::Compute<T>::type* __restrict__ wy,
+                    const typename mad::Compute<T>::type* __restrict__ wx) {
+  using A = typename mad::Compute<T>::type;
+  using R = RTile<T, V>;
+  __shared__ A tz[R::FY * R::FXA];
+  __shared__ int s_sy[R::TY], s_sx[R::TX];
+  __shared__ A s_wy[R::TY][4], s_wx[R::TX][4];
+  __shared__ int s_lo[3], s_hi[3];
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * R::TX;
+  const int j0 = blockIdx.y * R::TY;
+  const int batch = blockIdx.z / zruns;
+  const int k0 = (blockIdx.z % zruns) * kRZ;
+  const int k1 = min(k0 + kRZ, oz);
+  const int nyt = min(R::TY, oy - j0);
+  const int nxt = min(R::TX, ox - i0);
+
+  // the block's tables, and the fine rows and columns they read
+  int lo = INT_MAX, hi = -1;
+  if (tid < R::TX) {
+    const int i = i0 + min(tid, nxt - 1);
+    const int s = sx[i];
+    s_sx[tid] = s;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_wx[tid][e] = wx[4 * i + e];
+    if (tid < nxt) {
+      lo = s;
+      hi = min(s + 3, ix - 1);
+    }
+  } else if (tid >= 64 && tid < 64 + R::TY) {
+    const int jj = tid - 64;
+    const int j = j0 + min(jj, nyt - 1);
+    const int s = sy[j];
+    s_sy[jj] = s;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s_wy[jj][c] = wy[4 * j + c];
+    if (jj < nyt) {
+      lo = s;
+      hi = min(s + 3, iy - 1);
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (tid % 32 == 0 && tid < 96) {
+    s_lo[tid / 32] = lo;
+    s_hi[tid / 32] = hi;
+  }
+  __syncthreads();
+  const int xa = min(s_lo[0], s_lo[1]) / V * V;  // the tile's first column
+  const int xhi = max(s_hi[0], s_hi[1]);
+  const int ylo = s_lo[2], yhi = s_hi[2];
+  const int fy = yhi - ylo + 1, fx = xhi - xa + 1;
+  const int64_t fplane = static_cast<int64_t>(iy) * ix;
+  const T* src = in + static_cast<int64_t>(batch) * iz * fplane;
+  T* dst = out + static_cast<int64_t>(batch) * oz * oy * ox;
+
+  if (fy > R::FY || fx > R::FXA) {
+    // irregular tables: each output from device memory, same order
+    for (int k = k0; k < k1; ++k) {
+      const A* w = wz + 4 * k;
+      for (int o = tid; o < R::TY * R::TX; o += R::NT) {
+        const int jj = o / R::TX, ii = o % R::TX;
+        if (jj >= nyt || ii >= nxt) continue;
+        A tyv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = min(s_sx[ii] + e, ix - 1);
+          A tzv[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const T* col = src + static_cast<int64_t>(min(s_sy[jj] + c, iy - 1)) * ix + x;
+            A u[4];
+#pragma unroll
+            for (int a = 0; a < 4; ++a) u[a] = mad::load(col + min(sz[k] + a, iz - 1) * fplane);
+            tzv[c] = taps4(w, u[0], u[1], u[2], u[3]);
+          }
+          tyv[e] = taps4(s_wy[jj], tzv[0], tzv[1], tzv[2], tzv[3]);
+        }
+        mad::store(dst + (static_cast<int64_t>(k) * oy + j0 + jj) * ox + i0 + ii,
+                   taps4(s_wx[ii], tyv[0], tyv[1], tyv[2], tyv[3]));
+      }
+    }
+    return;
+  }
+
+  // this thread's runs of V fine tile values: offsets inside a fine plane
+  // (0 for a slot past the tile, whose loads are discarded), which slots
+  // are in, and where each run sits in the shared tile
+  int off[R::MP], at[R::MP];
+  unsigned in_tile = 0;
+#pragma unroll
+  for (int m = 0; m < R::MP; ++m) {
+    const int p = tid + m * R::NT;
+    const int r = p / R::NV, c = p % R::NV * V;
+    const bool ok = r < fy && c < fx;
+    off[m] = ok ? (ylo + r) * ix + xa + c : 0;
+    at[m] = r * R::FXA + c;
+    in_tile |= static_cast<unsigned>(ok) << m;
+  }
+  // this thread's output (jj, ii): its rows and columns of the fine tile
+  // (clamped as the tables clamp them) and its weights
+  const int jj = min(tid / R::TX, R::TY - 1), ii = tid % R::TX;
+  const bool out_ok = tid < R::TY * R::TX && jj < nyt && ii < nxt;
+  int rows[4], cols[4];
+  A wyv[4], wxv[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    rows[c] = (min(s_sy[jj] + c, iy - 1) - ylo) * R::FXA;
+    cols[c] = min(s_sx[ii] + c, ix - 1) - xa;
+    wyv[c] = s_wy[jj][c];
+    wxv[c] = s_wx[ii][c];
+  }
+  const int64_t obase = static_cast<int64_t>(j0 + jj) * ox + i0 + ii;
+  // every load of a plane is issued before any is used
+  auto load_plane = [&](int z, A(&u)[R::MP][V]) {
+    const T* pz = src + min(z, iz - 1) * fplane;
+#pragma unroll
+    for (int m = 0; m < R::MP; ++m) load_run<T, V>(pz + off[m], u[m]);
+  };
+  A part[R::MP][V];  // wz[k,0] u[s] + wz[k,1] u[s+1] for the next plane
+  A u2[R::MP][V], u3[R::MP][V];  // fine planes s + 2 and s + 3
+  bool have = false;  // part holds this plane's partial sums
+  bool ahead = false;  // u2, u3 hold this plane's new fine planes
+  for (int k = k0; k < k1; ++k) {
+    const int s = sz[k];
+    const A w[4] = {wz[4 * k], wz[4 * k + 1], wz[4 * k + 2], wz[4 * k + 3]};
+    const bool next = k + 1 < k1 && sz[k + 1] == s + 2;
+    const A v0 = next ? wz[4 * k + 4] : A(0);
+    const A v1 = next ? wz[4 * k + 5] : A(0);
+    if (!have) {
+      load_plane(s, u2);
+      load_plane(s + 1, u3);
+#pragma unroll
+      for (int m = 0; m < R::MP; ++m) {
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          part[m][q] = mad::add_rn(mad::mul_rn(w[0], u2[m][q]), mad::mul_rn(w[1], u3[m][q]));
+        }
+      }
+    }
+    if (!ahead) {
+      load_plane(s + 2, u2);
+      load_plane(s + 3, u3);
+    }
+#pragma unroll
+    for (int m = 0; m < R::MP; ++m) {
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        if (in_tile >> m & 1u) {
+          const A t = mad::add_rn(part[m][q], mad::mul_rn(w[2], u2[m][q]));
+          tz[at[m] + q] = mad::add_rn(t, mad::mul_rn(w[3], u3[m][q]));
+        }
+        part[m][q] = mad::add_rn(mad::mul_rn(v0, u2[m][q]), mad::mul_rn(v1, u3[m][q]));
+      }
+    }
+    // the next plane's two new fine planes load while y and x run
+    have = ahead = next;
+    if (next) {
+      load_plane(s + 4, u2);
+      load_plane(s + 5, u3);
+    }
+    __syncthreads();
+
+    // this thread's output: y over the four rows of each of its four
+    // columns, then x
+    if (out_ok) {
+      A tyv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tyv[e] = taps4(wyv, tz[rows[0] + cols[e]], tz[rows[1] + cols[e]],
+                       tz[rows[2] + cols[e]], tz[rows[3] + cols[e]]);
+      }
+      mad::store(dst + obase + static_cast<int64_t>(k) * oy * ox,
+                 taps4(wxv, tyv[0], tyv[1], tyv[2], tyv[3]));
+    }
+    __syncthreads();
+  }
+}
+
+// Two taps, each product and the sum rounded on its own.
+template <typename A>
+__device__ __forceinline__ A lerp2(A w0, A a, A w1, A b) {
+  return mad::add_rn(mad::mul_rn(w0, a), mad::mul_rn(w1, b));
+}
+
+// The value as the storage type rounds it, back in the compute type.
+template <typename T>
+__device__ __forceinline__ typename mad::Compute<T>::type rounded(
+    typename mad::Compute<T>::type v) {
+  T t;
+  mad::store(&t, v);
+  return mad::load(&t);
+}
 
 // kAdd: out = x + P e; kVec: every row is whole 16-byte vectors (fx % V == 0,
 // pointers aligned), else each output is stored on its own with a bound test.
@@ -270,11 +498,16 @@ int launch_restrict(const void* in, void* out, int64_t batch, int64_t iz,
                     const void* wz, const void* wy, const void* wx,
                     void* stream) {
   using A = typename mad::Compute<T>::type;
-  const dim3 block(kBX, kBY);
-  const dim3 grid(mad::blocks_for(ox, kBX), mad::blocks_for(oy, kBY),
-                  static_cast<unsigned>(batch * oz));
-  restrict_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), iz, iy, ix, oz, oy, ox,
+  constexpr int V = kRun<T>;
+  const bool vec = ix % V == 0 && reinterpret_cast<uintptr_t>(in) % (V * sizeof(T)) == 0;
+  const int64_t zruns = (oz + kRZ - 1) / kRZ;
+  const dim3 grid(mad::blocks_for(ox, RTile<T, V>::TX), mad::blocks_for(oy, RTile<T, V>::TY),
+                  static_cast<unsigned>(batch * zruns));
+  auto kernel = vec ? restrict_kernel<T, V> : restrict_kernel<T, 1>;
+  kernel<<<grid, RTile<T, V>::NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), static_cast<int>(iz),
+      static_cast<int>(iy), static_cast<int>(ix), static_cast<int>(oz),
+      static_cast<int>(oy), static_cast<int>(ox), static_cast<int>(zruns),
       static_cast<const int32_t*>(sz), static_cast<const int32_t*>(sy),
       static_cast<const int32_t*>(sx), static_cast<const A*>(wz),
       static_cast<const A*>(wy), static_cast<const A*>(wx));

@@ -7,7 +7,7 @@
 // `_assembly_kernel` (built by `_build_assembly`) in
 // multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py, and `_fd_kernel`
 // (built by `_build_fd`) in multigridanisotropicdiffusion_tpu/ops/
-// pallas_conv.py.  B8 and B11 share one FD stencil (`fd_hessian_at`), as the
+// pallas_conv.py.  B8 and B11 share one FD stencil (`fd_stencil`), as the
 // Pallas kernels share `_fd_plane_blocks`.  The formulas
 // are those of models/ved.py (`vesselness_measure`, `_make_assemble_fn`) and
 // ops/eigen3.py (`eigh3`), written out here; the TPU's polynomial arccos is
@@ -39,23 +39,41 @@
 // other operand): a near-isotropic Hessian with a tiny nonzero p gives
 // r = 0 * inf = NaN, and both versions must then give the same response.
 //
-// Bound on the card, 512^3 float32: device-memory bandwidth.  B8 reads 514
-// planes of us; the first scale writes 7 planes (4.3 GB, 1.28 ms at 3.35
-// TB/s); B11 reads 514 planes and writes 6 volumes (3.76 GB, 1.12 ms; 24
-// operations per voxel); a later scale reads the best response and writes the planes of the
-// voxels it wins (at most 8.1 GB, 2.4 ms, if every plane were read and
-// written).  About 170 float operations per voxel, 7 of them math-library
-// calls (2.3e10 in all, 0.34 ms at 67 TFLOP/s), sit below the memory bound;
-// unfused, they issue as ~170 instructions per voxel.  B9 reads 7 planes and
-// writes 6 (6.98 GB, 2.08 ms; ~265 operations per voxel).  Design: one
-// thread per voxel, threads along x (coalesced plane access); B8's 19 reads
-// of us per voxel hit L1/L2, since neighbouring threads share them.
+// B8's design: a block of 32 x 8 threads owns a (y, x) tile and marches
+// down a run of kVZ output planes, one voxel per thread per plane.  Each
+// plane of us is staged once into shared memory with its 1-voxel y/x ring
+// (edge replication is a clamp at staging time), four planes in a ring so
+// that the next plane's loads are in flight while one plane is computed;
+// the thread's own column of planes k - 1, k, k + 1 stays in registers and
+// the rest of the 19-point stencil is read from shared memory.  The first
+// scale and the select are two instantiations.  A voxel that is not bright
+// (l2 >= 0 or l3 >= 0, or NaN) has response 0 without the four exp and the
+// four divisions of the vesselness.  1 / x is the correctly rounded
+// reciprocal, which IEEE 754 makes the same bits as the division 1 / x.
+//
+// Bound on the card, 512^3 float32.  B8 reads 514 planes of us; the first
+// scale writes 7 planes (4.3 GB, 1.28 ms at 3.35 TB/s); a later scale
+// reads the best response and writes the 7 values of the voxels it wins
+// (~11% on the phantom: 1.48 GB, 0.44 ms).  Its plain formulas need ~197
+// float operations per voxel and ~110 more for the vesselness of a bright
+// voxel (~23%), each math-library call counted as it compiles on its own
+// (utils/sass_count.py --math): 0.44 ms at 67 TFLOP/s, as long as the
+// select's bytes.  The kernel issues ~570 instructions per voxel in its
+// plane loop, separately rounded, the vesselness whenever one voxel of the
+// warp is bright, so B8 is issue-bound, and the select's winners write 7
+// scattered values each, partial 32-byte sectors of every plane.  B11
+// reads 514 planes and writes 6 volumes (3.76 GB, 1.12 ms; 24
+// operations per voxel).  B9 reads 7 planes and writes 6 (6.98 GB, 2.08 ms;
+// ~265 operations per voxel).  B9 and B11: one thread per voxel, threads
+// along x (coalesced plane access); B11's 19 reads of us per voxel hit
+// L1/L2, since neighbouring threads share them.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBX = 32;
 constexpr int kBY = 8;
+constexpr int kVZ = 16;  // output planes per B8 block
 
 // A value of the compute type whose operations round one by one.
 template <typename A>
@@ -78,6 +96,8 @@ __device__ __forceinline__ float m_exp(float a) { return expf(a); }
 __device__ __forceinline__ double m_exp(double a) { return ::exp(a); }
 __device__ __forceinline__ float m_pow(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double m_pow(double a, double b) { return ::pow(a, b); }
+__device__ __forceinline__ float m_rcp(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double m_rcp(double a) { return __drcp_rn(a); }
 __device__ __forceinline__ float m_abs(float a) { return fabsf(a); }
 __device__ __forceinline__ double m_abs(double a) { return ::fabs(a); }
 
@@ -104,6 +124,9 @@ template <typename A>
 __device__ __forceinline__ Rn<A> where(bool c, Rn<A> a, Rn<A> b) { return c ? a : b; }
 template <typename A>
 __device__ __forceinline__ Rn<A> abs(Rn<A> a) { return m_abs(a.v); }
+// 1 / a, correctly rounded: the same value as the division 1 / a
+template <typename A>
+__device__ __forceinline__ Rn<A> recip(Rn<A> a) { return m_rcp(a.v); }
 template <typename A>
 __device__ __forceinline__ Rn<A> sqrt(Rn<A> a) { return m_sqrt(a.v); }
 template <typename A>
@@ -169,7 +192,7 @@ __device__ __forceinline__ Scaled<A> scaled_eigenvalues(Sym<A> m) {
       maxnan(maxnan(abs(m.a00), abs(m.a11)), abs(m.a22)),
       maxnan(maxnan(abs(m.a01), abs(m.a02)), abs(m.a12)));
   const Rn<A> scale_safe = where(scale > zero, scale, one);
-  const Rn<A> inv_scale = one / scale_safe;
+  const Rn<A> inv_scale = recip(scale_safe);
   Sym<A> a{m.a00 * inv_scale, m.a01 * inv_scale, m.a02 * inv_scale,
            m.a11 * inv_scale, m.a12 * inv_scale, m.a22 * inv_scale};
 
@@ -183,7 +206,7 @@ __device__ __forceinline__ Scaled<A> scaled_eigenvalues(Sym<A> m) {
   const Rn<A> detb = b00 * (b11 * b22 - a.a12 * a.a12) -
                      a.a01 * (a.a01 * b22 - a.a12 * a.a02) +
                      a.a02 * (a.a01 * a.a12 - b11 * a.a02);
-  const Rn<A> inv_p = one / p_safe;
+  const Rn<A> inv_p = recip(p_safe);
   const Rn<A> inv_p3 = inv_p * inv_p * inv_p;
   const Rn<A> r = clampnan(detb * inv_p3 * Rn<A>(A(0.5)), -one, one);
   const Rn<A> phi = acos(r) * Rn<A>(A(1.0 / 3.0));
@@ -198,25 +221,30 @@ __device__ __forceinline__ Scaled<A> scaled_eigenvalues(Sym<A> m) {
   return {a, lo, mid, hi, scale_safe};
 }
 
-// models/ved.py `vesselness_measure` on |value|-ascending eigenvalues.
+// The three divisors of the vesselness, 2 alpha^2, 2 beta^2 and 2 gamma^2.
 template <typename A>
-__device__ __forceinline__ Rn<A> vesselness(Rn<A> l1, Rn<A> l2, Rn<A> l3,
-                                             A two_a2, A two_b2, A two_g2) {
-  const Rn<A> zero = A(0), one = A(1), minus_one = A(-1);
-  const bool bright = l2 < zero && l3 < zero;
+struct Divisors {
+  A d[3];
+};
+
+// models/ved.py `vesselness_measure` on |value|-ascending eigenvalues of a
+// bright voxel (l2 < 0 and l3 < 0); any other voxel's response is 0.
+template <typename A>
+__device__ __forceinline__ Rn<A> vesselness_bright(Rn<A> l1, Rn<A> l2, Rn<A> l3,
+                                                    const Divisors<A>& dv) {
+  const Rn<A> one = A(1);
   const Rn<A> c = A(1e-5);
-  const Rn<A> l2s = where(bright, l2, minus_one);
-  const Rn<A> l3s = where(bright, l3, minus_one);
-  const Rn<A> inv2 = one / l2s;
-  const Rn<A> inv3 = one / l3s;
-  const Rn<A> ra = l2s * inv3;
+  const Rn<A> inv2 = recip(l2);
+  const Rn<A> inv3 = recip(l3);
+  const Rn<A> ra = l2 * inv3;
   const Rn<A> ra2 = ra * ra;
   const Rn<A> rb2 = (l1 * l1) * abs(inv2 * inv3);
   const Rn<A> s2 = l1 * l1 + l2 * l2 + l3 * l3;
   const Rn<A> smooth = exp(-(Rn<A>(A(2)) * c * c) * abs(inv2) * (inv3 * inv3));
-  const Rn<A> v = smooth * (one - exp(-ra2 / Rn<A>(two_a2))) *
-                  exp(-rb2 / Rn<A>(two_b2)) * (one - exp(-s2 / Rn<A>(two_g2)));
-  return where(bright, v, zero);
+  const Rn<A> ea = exp(-ra2 / Rn<A>(dv.d[0]));
+  const Rn<A> eb = exp(-rb2 / Rn<A>(dv.d[1]));
+  const Rn<A> eg = exp(-s2 / Rn<A>(dv.d[2]));
+  return smooth * (one - ea) * eb * (one - eg);
 }
 
 template <typename A>
@@ -228,10 +256,27 @@ __device__ __forceinline__ void swap_abs(Rn<A>& a, Rn<A>& b) {
   }
 }
 
-// The six scaled central second differences (symfield order) at output voxel
-// (k, j, i) of a valid-z smoothed field us (Z + 2, Y, X): 19 points, z from
-// the 1-plane halo, y and x neighbours clamped at the global borders (edge
-// replication), in the compute type, unrounded.
+// The six scaled central second differences (symfield order) of a valid-z
+// smoothed field, from S(dz, dy, dx), the field at the output voxel's
+// point offset by dz, dy, dx in {-1, 0, 1} (z from the 1-plane halo, y and x
+// neighbours clamped at the global borders: edge replication), in the
+// compute type, unrounded.
+template <typename A, typename F>
+__device__ __forceinline__ Sym<A> fd_stencil(F S, const Sym<A>& facs) {
+  const Rn<A> two = A(2);
+  const Rn<A> c = S(0, 0, 0);
+  Sym<A> hv;
+  hv.a00 = (S(1, 0, 0) - two * c + S(-1, 0, 0)) * facs.a00;
+  hv.a01 = (S(1, 1, 0) - S(1, -1, 0) - S(-1, 1, 0) + S(-1, -1, 0)) * facs.a01;
+  hv.a02 = (S(1, 0, 1) - S(1, 0, -1) - S(-1, 0, 1) + S(-1, 0, -1)) * facs.a02;
+  hv.a11 = (S(0, 1, 0) - two * c + S(0, -1, 0)) * facs.a11;
+  hv.a12 = (S(0, 1, 1) - S(0, 1, -1) - S(0, -1, 1) + S(0, -1, -1)) * facs.a12;
+  hv.a22 = (S(0, 0, 1) - two * c + S(0, 0, -1)) * facs.a22;
+  return hv;
+}
+
+// fd_stencil at output voxel (k, j, i) of us (Z + 2, Y, X), read from
+// device memory.
 template <typename T>
 __device__ __forceinline__ Sym<typename mad::Compute<T>::type> fd_hessian_at(
     const T* __restrict__ us, int64_t k, int64_t j, int64_t i, int64_t ny,
@@ -243,19 +288,11 @@ __device__ __forceinline__ Sym<typename mad::Compute<T>::type> fd_hessian_at(
   const int64_t xp = i + 1 < nx ? 1 : 0;
   const int64_t xm = i > 0 ? -1 : 0;
   const T* c0 = us + (k + 1) * plane + j * nx + i;  // the 1-plane z halo
-  auto S = [&](int dz, int64_t oy, int64_t ox) -> Rn<A> {
-    return mad::load(c0 + dz * plane + oy + ox);
+  auto S = [&](int dz, int dy, int dx) -> Rn<A> {
+    return mad::load(c0 + dz * plane + (dy > 0 ? yp : dy < 0 ? ym : 0) +
+                     (dx > 0 ? xp : dx < 0 ? xm : 0));
   };
-  const Rn<A> two = A(2);
-  const Rn<A> c = S(0, 0, 0);
-  Sym<A> hv;
-  hv.a00 = (S(1, 0, 0) - two * c + S(-1, 0, 0)) * facs.a00;
-  hv.a01 = (S(1, yp, 0) - S(1, ym, 0) - S(-1, yp, 0) + S(-1, ym, 0)) * facs.a01;
-  hv.a02 = (S(1, 0, xp) - S(1, 0, xm) - S(-1, 0, xp) + S(-1, 0, xm)) * facs.a02;
-  hv.a11 = (S(0, yp, 0) - two * c + S(0, ym, 0)) * facs.a11;
-  hv.a12 = (S(0, yp, xp) - S(0, yp, xm) - S(0, ym, xp) + S(0, ym, xm)) * facs.a12;
-  hv.a22 = (S(0, 0, xp) - two * c + S(0, 0, xm)) * facs.a22;
-  return hv;
+  return fd_stencil<A>(S, facs);
 }
 
 // The six planes of h at flat voxel o of an n-voxel volume, rounded to T.
@@ -270,32 +307,94 @@ __device__ __forceinline__ void store_planes(T* __restrict__ h, int64_t n,
   mad::store(h + 5 * n + o, hv.a22.v);
 }
 
-template <typename T>
+template <typename T, bool kFirst>
 __global__ void __launch_bounds__(kBX * kBY)
     fd_vesselness_kernel(const T* __restrict__ us,
                          typename mad::Compute<T>::type* __restrict__ resp,
-                         T* __restrict__ h, int64_t nz, int64_t ny, int64_t nx,
-                         Sym<typename mad::Compute<T>::type> facs, double two_a2,
-                         double two_b2, double two_g2, int first) {
+                         T* __restrict__ h, int nz, int ny, int nx,
+                         Sym<typename mad::Compute<T>::type> facs,
+                         Divisors<typename mad::Compute<T>::type> dv) {
   using A = typename mad::Compute<T>::type;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBX + threadIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBY + threadIdx.y;
-  const int64_t k = blockIdx.z;
-  if (i >= nx || j >= ny) return;
-  const Sym<A> hv = fd_hessian_at(us, k, j, i, ny, nx, facs);
+  constexpr int TW = kBX + 2, TH = kBY + 2, TP = TW * TH;
+  __shared__ A tile[4][TP];
+  const int lane = threadIdx.x, w = threadIdx.y;
+  const int tid = w * kBX + lane;
+  const int i = blockIdx.x * kBX + lane;
+  const int j = blockIdx.y * kBY + w;
+  const int k0 = blockIdx.z * kVZ;
+  const int k1 = min(k0 + kVZ, nz);
+  const int64_t plane = static_cast<int64_t>(ny) * nx;
+  const int64_t n = nz * plane;
+  const bool valid = i < nx && j < ny;
 
-  const Scaled<A> e = scaled_eigenvalues(hv);
-  Rn<A> l0 = e.lo * e.scale, l1 = e.mid * e.scale, l2 = e.hi * e.scale;
-  swap_abs(l0, l1);
-  swap_abs(l1, l2);
-  swap_abs(l0, l1);
-  const Rn<A> v = vesselness(l0, l1, l2, A(two_a2), A(two_b2), A(two_g2));
+  // this thread's points of a tile plane (with its clamped ring): at most 2
+  int soff[2], sidx[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int p = tid + m * kBX * kBY;
+    const int gy = min(max(static_cast<int>(blockIdx.y) * kBY - 1 + p / TW, 0), ny - 1);
+    const int gx = min(max(static_cast<int>(blockIdx.x) * kBX - 1 + p % TW, 0), nx - 1);
+    sidx[m] = p < TP ? p : -1;
+    soff[m] = gy * nx + gx;
+  }
+  A staged[2];
+  auto fetch = [&](int z) {
+    const T* src = us + z * plane;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (sidx[m] >= 0) staged[m] = mad::load(src + soff[m]);
+    }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (sidx[m] >= 0) tile[buf][sidx[m]] = staged[m];
+    }
+  };
+  for (int b = 0; b < 3; ++b) {
+    fetch(k0 + b);
+    put(b);
+  }
+  __syncthreads();
+  const int me = (w + 1) * TW + lane + 1;  // this thread's point in a tile plane
+  A cm = tile[0][me], c0 = tile[1][me];
 
-  const int64_t plane = ny * nx;
-  const int64_t o = k * plane + j * nx + i;
-  if (!first && !(v.v > resp[o])) return;
-  resp[o] = v.v;
-  store_planes(h, nz * plane, o, hv);
+  for (int k = k0; k < k1; ++k) {
+    const int b = (k - k0) & 3;
+    const bool more = k + 1 < k1;
+    if (more) fetch(k + 3);  // in flight while this plane is computed
+    const A* tm = tile[b];
+    const A* t0 = tile[(b + 1) & 3];
+    const A* tp = tile[(b + 2) & 3];
+    const A cp = tp[me];
+    auto S = [&](int dz, int dy, int dx) -> Rn<A> {
+      if (dy == 0 && dx == 0) return dz < 0 ? cm : (dz > 0 ? cp : c0);
+      const A* t = dz < 0 ? tm : (dz > 0 ? tp : t0);
+      return t[me + dy * TW + dx];
+    };
+    const Sym<A> hv = fd_stencil<A>(S, facs);
+    cm = c0;
+    c0 = cp;
+
+    const Scaled<A> e = scaled_eigenvalues(hv);
+    Rn<A> l0 = e.lo * e.scale, l1 = e.mid * e.scale, l2 = e.hi * e.scale;
+    swap_abs(l0, l1);
+    swap_abs(l1, l2);
+    swap_abs(l0, l1);
+    const bool bright = l1.v < A(0) && l2.v < A(0);
+    // a voxel that is not bright has response 0 (no exp, no division)
+    const int64_t o = k * plane + static_cast<int64_t>(j) * nx + i;
+    if (valid) {
+      const A v = bright ? vesselness_bright(l0, l1, l2, dv).v : A(0);
+      if (kFirst || v > resp[o]) {
+        resp[o] = v;
+        store_planes(h, n, o, hv);
+      }
+    }
+
+    if (more) put((b + 3) & 3);
+    __syncthreads();
+  }
 }
 
 template <typename T>
@@ -386,14 +485,16 @@ int launch_fd_vesselness(const void* us, void* resp, void* h, int64_t nz,
                          double two_a2, double two_b2, double two_g2, int first,
                          void* stream) {
   using A = typename mad::Compute<T>::type;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Sym<A> facs{A(f[0]), A(f[1]), A(f[2]), A(f[3]), A(f[4]), A(f[5])};
+  const Divisors<A> dv{{A(two_a2), A(two_b2), A(two_g2)}};
   const dim3 block(kBX, kBY);
   const dim3 grid(mad::blocks_for(nx, kBX), mad::blocks_for(ny, kBY),
-                  static_cast<unsigned>(nz));
-  fd_vesselness_kernel<T><<<grid, block, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(us), static_cast<A*>(resp), static_cast<T*>(h),
-      nz, ny, nx, facs, two_a2, two_b2, two_g2, first);
+                  mad::blocks_for(nz, kVZ));
+  auto kernel = first ? fd_vesselness_kernel<T, true> : fd_vesselness_kernel<T, false>;
+  kernel<<<grid, block, 0, s>>>(static_cast<const T*>(us), static_cast<A*>(resp),
+                                static_cast<T*>(h), static_cast<int>(nz),
+                                static_cast<int>(ny), static_cast<int>(nx), facs, dv);
   return static_cast<int>(cudaGetLastError());
 }
 

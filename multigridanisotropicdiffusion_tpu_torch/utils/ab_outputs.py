@@ -1,0 +1,113 @@
+"""Save the 512^3 main paths' outputs of one tree, and compare two trees'.
+
+    python -m multigridanisotropicdiffusion_tpu_torch.utils.ab_outputs run DIR
+    python -m multigridanisotropicdiffusion_tpu_torch.utils.ab_outputs compare DIR_A DIR_B
+
+``run`` drives, on one CUDA card, the MAD 512^3 solve (``MADConfig.cuda(
+time_step=0.1, tolerance=1e-6)`` on ``phantom.spd_tensor_field`` and b
+uniform in [0, 255), from seed 0 on the device, as ``chip_smoke.py``'s
+phase 5) and the VED 512^3 call (``VEDConfig.cuda()`` on the tube phantom
+from seed 1), and writes into DIR: the outputs (``mad.pt``, ``ved.pt``), the first outer
+iteration's vesselness and tensor (``fused_vesselness_tensor`` on the input
+volume: ``first_resp.pt``, ``first_tensor.pt``), and ``summary.json`` with
+the MAD solve's cycles and relative residual history, the last VED solve's,
+and a SHA-256 of each saved tensor's bytes.  ``compare`` prints, for two
+such directories, whether the cycle counts agree, the residual histories,
+whether each hash agrees and the relative L2 difference of each tensor, as
+one JSON line.  Two trees are compared by running ``run`` in each: copies
+of this script and of ``utils/phantom.py`` in an older tree run that tree's
+kernels (the script imports only modules the package has had since its
+VED kernels).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+
+import torch
+
+SHAPE = (512, 512, 512)
+NAMES = ("mad", "ved", "first_resp", "first_tensor")
+
+
+def _sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def run(out_dir: str) -> dict:
+    from .. import MADConfig, VEDConfig, mad_diffusion, ved
+    from ..models.ved import _auto_z_slab, fused_vesselness_tensor
+    from .phantom import spd_tensor_field, tube_phantom
+
+    os.makedirs(out_dir, exist_ok=True)
+    summary = {"device": torch.cuda.get_device_name(0)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tensor = spd_tensor_field(SHAPE, gen)
+    b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
+    res = mad_diffusion(b, tensor, config=MADConfig.cuda(time_step=0.1, tolerance=1e-6),
+                        device="cuda")
+    n = int(res.num_cycles[0])
+    summary["mad"] = {"cycles": res.num_cycles.tolist(),
+                      "history": res.residual_history[0, :n].tolist()}
+    outs = {"mad": res.output}
+    del tensor, b, res
+    vol = tube_phantom(SHAPE, torch.Generator(device="cuda").manual_seed(1))
+    cfg = VEDConfig.cuda()
+    resp, tens = fused_vesselness_tensor(
+        vol, tuple(cfg.scales), (1.0,) * 3, cfg.alpha, cfg.beta, cfg.gamma, cfg.epsilon,
+        cfg.omega, cfg.sensitivity, z_slab=_auto_z_slab(SHAPE, cfg.pipeline_z_slab),
+        hessian_mode=cfg.hessian_mode, pipeline_dtype=cfg.pipeline_dtype,
+        use_kernels=cfg.use_kernels)
+    outs["first_resp"], outs["first_tensor"] = resp, tens
+    res = ved(vol, config=cfg, device="cuda")
+    d = res.diffusion
+    summary["ved_last_solve"] = {
+        "cycles": d.num_cycles.tolist(),
+        "history": [d.residual_history[s, :int(c)].tolist()
+                    for s, c in enumerate(d.num_cycles.tolist())]}
+    outs["ved"] = res.output
+    torch.cuda.synchronize()
+    summary["sha256"] = {k: _sha256(v) for k, v in outs.items()}
+    for k, v in outs.items():
+        torch.save(v.cpu(), os.path.join(out_dir, f"{k}.pt"))
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f)
+    return summary
+
+
+def compare(dir_a: str, dir_b: str) -> dict:
+    sums = []
+    for d in (dir_a, dir_b):
+        with open(os.path.join(d, "summary.json")) as f:
+            sums.append(json.load(f))
+    row = {"same_cycles": {k: sums[0][k]["cycles"] == sums[1][k]["cycles"]
+                           for k in ("mad", "ved_last_solve")},
+           "history": {k: [s[k]["history"] for s in sums] for k in ("mad", "ved_last_solve")},
+           "same_hash": {k: sums[0]["sha256"][k] == sums[1]["sha256"][k] for k in NAMES},
+           "rel_l2": {}}
+    for k in NAMES:
+        a, b = (torch.load(os.path.join(d, f"{k}.pt")).double() for d in (dir_a, dir_b))
+        row["rel_l2"][k] = ((a - b).norm() / b.norm()).item()
+    return row
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) == 2 and argv[0] == "run":
+        if not torch.cuda.is_available():
+            print("needs a CUDA device", file=sys.stderr)
+            return 1
+        print(json.dumps(run(argv[1])))
+        return 0
+    if len(argv) == 3 and argv[0] == "compare":
+        print(json.dumps(compare(argv[1], argv[2])))
+        return 0
+    print(__doc__.split("\n\n")[1], file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

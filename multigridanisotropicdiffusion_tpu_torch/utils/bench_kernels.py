@@ -1,11 +1,14 @@
-"""Time the transfer kernels (B3, B4) and the fused y+x Gaussian (B7) at
-the main path's shapes, on one CUDA card.
+"""Time the transfer kernels (B3, B4), the fused y+x Gaussian (B7), the
+fused FD Hessian + vesselness + select (B8) and the standalone FD Hessian
+(B11) at the main path's shapes, on one CUDA card.
 
-    python -m multigridanisotropicdiffusion_tpu_torch.utils.bench_kernels [--check-only]
+    python -m multigridanisotropicdiffusion_tpu_torch.utils.bench_kernels \\
+        [--check-only] [--only PREFIX ...]
 
 Cases, float32 and bfloat16 storage, inputs made on the device from seed 0:
 
-* ``restrict3d``: 512^3 -> 256^3, all cell-centred (the solve's level 0);
+* ``restrict3d``: 512^3 -> 256^3, all cell-centred (the solve's level 0),
+  and the batch of six tensor planes (the DCA setup's restriction);
 * ``prolong3d``: 256^3 -> 512^3, ``P e``;
 * ``correction``: the V-cycle's ``x + P e`` at 512^3, as ``x +
   cuda_prolong(e)`` (two launches) and, where the package has it, as one
@@ -13,23 +16,37 @@ Cases, float32 and bfloat16 storage, inputs made on the device from seed 0:
 * ``conv_yx``: 514 planes of 512^2 (a 512^3 volume's smoothed field with
   its two FD halo planes), the tube phantom, with each of the VED's five
   scales' Gaussian taps at unit spacing (r = 2, 2, 4, 5, 8);
+* ``fd_vesselness``: B8's first scale (sigma 1.245) and a select scale
+  (sigma 2, against the first scale's best, restored before each call) on
+  the 512^3 phantom's smoothed fields (514 planes, the two FD halo planes
+  included) and on their first 66 planes (one VED z slab of 64 planes, the
+  shape the main path's 40 launches have);
+* ``fd_hessian``: B11 on the sigma 2 field;
 * ``fill_``: a plain write of a 512^3 field, what the card's memory takes
   for the bytes the prolongation writes (a yardstick, not a kernel of the
   package).
 
 Each case is first held against its plain version (float32 within 1e-5 of
-max|plain|, bf16 within one bf16 ulp of each value, floored at that; the
-add form bit for bit ``x + cuda_prolong(e)``).  Then, unless
-``--check-only``, the median of 20 CUDA-event timings of 10 back-to-back
-calls each (per call) after a warm-up, with
-the least time the card could take for the bytes moved (each input read
-once, each output written once, at 3.35 TB/s).  Prints the card's name and
-power limit, one line per case, and a last line ``{"cases": [...]}``.
-Exits 1 if a check fails or there is no card.
+max|plain|, bf16 within one bf16 ulp of each value, floored at that; B8's
+select: the response only, since a near-tie may flip a decision; the add
+form bit for bit ``x + cuda_prolong(e)``), and ``equal`` says whether the
+output is bit for bit the plain version's.  ``sha256`` is a hash of the
+output's bytes (B8: the response, then the six planes), so that two trees'
+outputs can be compared.  Then, unless ``--check-only``, the median of 20
+CUDA-event timings of 10 back-to-back calls each (per call) after a
+warm-up (B8's select: one call per timing, after the restore), with the
+least time the card could take for the bytes moved (each input read once,
+each output written once, at 3.35 TB/s).  Before the B8 cases, a line
+per VED scale gives the share of the 514-plane phantom field's voxels that
+are bright (the two largest-magnitude eigenvalues negative: the voxels
+whose vesselness is not 0), counted from the plain eigenvalues.  Prints
+the card's name and power limit, one line per case, and a last line
+``{"cases": [...]}``.  Exits 1 if a check fails or there is no card.
 
 The script imports only what every version of the package since the first
 transfer kernels has (``ops.cuda_transfer``, ``ops.cuda_conv``,
-``ops.transfer``, ``ops.hessian``, ``utils.phantom``), so a copy of it in an
+``ops.transfer``, ``ops.hessian``, ``ops.cuda_vesselness``,
+``ops.eigen3``, ``models.ved``, ``utils.phantom``), so a copy of it in an
 older tree times that tree's kernels: two trees are compared in one call by
 running it in each, in turns.
 """
@@ -37,6 +54,7 @@ running it in each, in turns.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -46,14 +64,22 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 SIGMAS = (0.3, 0.482, 0.775, 1.245, 2.0)
+PARAMS = (0.5, 0.5, 5.0)  # VEDConfig's alpha, beta, gamma
 
 
-def _median_ms(fn, reps=20, burst=10):
+def _median_ms(fn, reps=20, burst=10, setup=None):
     """Median over ``reps`` CUDA-event timings of ``burst`` back-to-back
-    calls, per call: the wrapper's host time overlaps the card's work."""
+    calls, per call: the wrapper's host time overlaps the card's work.
+    With ``setup``: one call per timing, each after ``setup()``, which is
+    left to run on the card (so the call's launch overlaps it)."""
+    if setup:
+        burst = 1
+        setup()
     fn()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -79,16 +105,33 @@ def _max_err(got, want):
     return err.max().item() if ok else None
 
 
+def _sha256(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--check-only", action="store_true",
                         help="hold each case against its plain version, time nothing")
+    parser.add_argument("--only", action="append", default=[], metavar="PREFIX",
+                        help="run only the cases whose name starts with PREFIX (repeatable)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    from ..ops import cuda_conv, cuda_transfer, transfer
-    from ..ops.hessian import gaussian_kernels_1d
+    from ..models.ved import vesselness_measure
+    from ..ops import cuda_conv, cuda_transfer, cuda_vesselness, transfer
+    from ..ops.eigen3 import eigvalsh3, sort_by_abs3
+    from ..ops.hessian import (
+        fd_factors,
+        fd_planes,
+        gaussian_kernels_1d,
+        kernel_radius,
+        smoothed_field_valid_z,
+    )
     from .phantom import tube_phantom
 
     torch.backends.cudnn.allow_tf32 = False
@@ -103,20 +146,90 @@ def main(argv=None) -> int:
     vol = tube_phantom((514, 512, 512), gen)
     cases, failed = [], []
 
-    def case(name, dtype, fn, want, nbytes, same=None):
+    def case(name, dtype, fn, want, nbytes, same=None, setup=None, parts=None):
+        """``parts(got)``: the tensors of the output that are hashed (the
+        first is checked against ``want``); default the output itself."""
+        if args.only and not name.startswith(tuple(args.only)):
+            return
+        if setup:
+            setup()
         got = fn()
-        err = 0.0 if same is not None and torch.equal(got, same) else (
-            None if same is not None else _max_err(got, want))
-        del got
+        outs = parts(got) if parts else (got,)
+        if same is not None:
+            err = 0.0 if torch.equal(got, same) else None
+            equal = err == 0.0
+        else:
+            err = _max_err(outs[0], want)
+            equal = bool(torch.equal(outs[0], want))
         row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
-               "max_abs_err": err,
+               "max_abs_err": err, "equal": equal, "sha256": _sha256(*outs),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        del got, outs
         if err is None:
             failed.append(name)
         elif not args.check_only:
-            row["ms"] = _median_ms(fn)
+            row["ms"] = _median_ms(fn, setup=setup)
         cases.append(row)
         print(json.dumps(row), flush=True)
+
+    radius = kernel_radius(2.0, 1.0) + 1
+    one = (1.0, 1.0, 1.0)
+    ved_vol = tube_phantom((512 + 2 * radius, 512, 512), gen)
+
+    def fdv(us, facs, best=None):
+        return cuda_vesselness.fd_vesselness(us, facs, PARAMS, best,
+                                             measure_fn=vesselness_measure)
+
+    def fd_cases(dtype):
+        """B8 first and select, B11, on the 514-plane fields and a 66-plane
+        slab of them; the bright share per scale (float32 only)."""
+        item = torch.finfo(dtype).bits // 8
+        u = ved_vol.to(dtype)
+        if dtype == torch.float32:
+            for sigma in SIGMAS:
+                us = smoothed_field_valid_z(u, sigma, one, radius, use_kernels=True)
+                lam = sort_by_abs3(eigvalsh3(fd_planes(us, fd_factors(sigma, one, True))))
+                share = ((lam[1] < 0) & (lam[2] < 0)).double().mean().item()
+                del us, lam
+                print(json.dumps({"bright_share": share, "sigma": sigma,
+                                  "shape": [512 + 2, 512, 512]}), flush=True)
+        us1 = smoothed_field_valid_z(u, 1.245, one, radius, use_kernels=True)
+        us2 = smoothed_field_valid_z(u, 2.0, one, radius, use_kernels=True)
+        del u
+        f1, f2 = fd_factors(1.245, one, True), fd_factors(2.0, one, True)
+        for planes in (514, 66):
+            a, b = us1[:planes].contiguous(), us2[:planes].contiguous()
+            n = (planes - 2) * 512 * 512
+            resp_item = 4
+            tag = f"{planes} planes"
+            want = cuda_vesselness.fd_vesselness_plain(a, f1, PARAMS, None,
+                                                       vesselness_measure)[0]
+            case(f"fd_vesselness first {tag}", dtype, lambda: fdv(a, f1), want,
+                 a.numel() * item + n * (resp_item + 6 * item), parts=lambda g: g)
+            best = fdv(a, f1)
+            incoming = (best[0].clone(), best[1].clone())
+            want = cuda_vesselness.fd_vesselness_plain(b, f2, PARAMS, incoming,
+                                                       vesselness_measure)[0]
+            winners = int((want > incoming[0]).sum())
+
+            def restore():
+                best[0].copy_(incoming[0])
+                best[1].copy_(incoming[1])
+
+            case(f"fd_vesselness select {tag}", dtype, lambda: fdv(b, f2, best), want,
+                 b.numel() * item + n * resp_item + winners * (resp_item + 6 * item),
+                 setup=restore, parts=lambda g: g)
+            print(json.dumps({"select_winners": winners, "of": n, "case": tag,
+                              "dtype": str(dtype).replace("torch.", "")}), flush=True)
+            del want, best, incoming
+            if planes == 514:
+                case("fd_hessian 514 planes", dtype,
+                     lambda: cuda_vesselness.fd_hessian(b, f2),
+                     cuda_vesselness.fd_hessian_plain(b, f2), (b.numel() + 6 * n) * item)
+            del a, b
+            torch.cuda.empty_cache()
+        del us1, us2
+        torch.cuda.empty_cache()
 
     for dtype in (torch.float32, torch.bfloat16):
         item = torch.finfo(dtype).bits // 8
@@ -124,6 +237,10 @@ def main(argv=None) -> int:
         cells = x.numel()
         case("restrict3d", dtype, lambda: cuda_transfer.cuda_restrict(x, cent),
              transfer.restrict_plain(x, cent), (1 + 1 / 8) * cells * item)
+        six = torch.stack([x.roll(a, 0) for a in range(6)])
+        case("restrict3d batch 6", dtype, lambda: cuda_transfer.cuda_restrict(six, cent),
+             transfer.restrict_plain(six, cent), 6 * (1 + 1 / 8) * cells * item)
+        del six
         case("prolong3d", dtype, lambda: cuda_transfer.cuda_prolong(e, cent),
              transfer.prolong_plain(e, cent), (1 + 1 / 8) * cells * item)
         pair = x + cuda_transfer.cuda_prolong(e, cent)
@@ -145,6 +262,8 @@ def main(argv=None) -> int:
                  2 * u.numel() * item)
         del u
         torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        fd_cases(dtype)
     print(json.dumps({"cases": cases}))
     if failed:
         print(f"FAILED against the plain versions: {failed}", file=sys.stderr)

@@ -1,7 +1,9 @@
-"""A seeded tube phantom for the VED pipeline, built on the device.
+"""Seeded inputs built on the device: a tube phantom for the VED pipeline
+and a field of diffusion tensors for the solve.
 
-No JAX counterpart: the JAX package's tests build their phantoms in numpy.
-``chip_smoke.py`` and :mod:`.profile_ved` drive the 512^3 VED call with it.
+No JAX counterpart: the JAX package's tests build their inputs in numpy.
+``chip_smoke.py``, :mod:`.profile_ved` and :mod:`.ab_outputs` drive the
+512^3 main paths with them.
 """
 
 from __future__ import annotations
@@ -53,3 +55,18 @@ def tube_phantom(shape: Tuple[int, int, int], generator: torch.Generator) -> tor
 def tube_centre(shape: Tuple[int, int, int]) -> Tuple[int, ...]:
     """The voxel at the point of the first, thinnest tube (along z)."""
     return tuple(int(p * n) for p, n in zip(TUBES[0][0], shape))
+
+
+def spd_tensor_field(shape: Tuple[int, ...], generator: torch.Generator) -> torch.Tensor:
+    """Per voxel G G^T + 2 I with G normal (D x D for a D-dimensional grid),
+    as a symfield-order stack on the generator's device (the JAX package's
+    bench.py construction)."""
+    nd = len(shape)
+    rows = torch.randn((nd, nd, *shape), generator=generator, device=generator.device)
+    pairs = [(i, j) for i in range(nd) for j in range(i, nd)]
+    t = torch.empty((len(pairs), *shape), device=generator.device)
+    for k, (i, j) in enumerate(pairs):
+        torch.sum(rows[i] * rows[j], dim=0, out=t[k])
+        if i == j:
+            t[k] += 2.0
+    return t

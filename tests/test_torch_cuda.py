@@ -7,7 +7,8 @@ with a card.  They mirror the kernel phase of ``chip_smoke.py`` at the
 pair.  Tolerances: float64 1e-12 and float32 1e-5 of the largest reference
 value (the kernels sum in another order than the plain versions); bf16 one
 bf16 ulp of each reference value (both compute in float32 and round once),
-with the float32 floor for values near zero.
+with the float32 floor for values near zero.  The restriction rounds as its
+plain version does and is held to ``torch.equal``.
 """
 
 import itertools
@@ -80,10 +81,11 @@ def test_kernels_match_plain(device, level, dtype):
            cuda_smoothers.residual_plain(op, x, b))
     if level + 1 < len(LEVELS) and LEVELS[level + 1].index == lvl.index + 1:
         cent = LEVELS[level + 1].centering
-        _check(cuda_transfer.cuda_restrict(x, cent), transfer.restrict_plain(x, cent))
+        assert torch.equal(cuda_transfer.cuda_restrict(x, cent),
+                           transfer.restrict_plain(x, cent))
         batch = t.to(dtype)
-        _check(cuda_transfer.cuda_restrict(batch, cent),
-               transfer.restrict_plain(batch, cent))
+        assert torch.equal(cuda_transfer.cuda_restrict(batch, cent),
+                           transfer.restrict_plain(batch, cent))
         e = transfer.restrict_plain(x, cent)
         _check(cuda_transfer.cuda_prolong(e, cent), transfer.prolong_plain(e, cent))
     torch.cuda.synchronize()
@@ -118,6 +120,28 @@ def test_prolong_every_centring_mix(device, cent, dtype):
         assert torch.equal(cuda_transfer.cuda_prolong_add(shifted, e, cent), x + p)
         torch.cuda.synchronize()
         assert cuda_transfer.cuda_prolong.launches - before == 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("cent", list(itertools.product("cv", repeat=3)), ids="".join)
+def test_restrict_every_centring_mix_bit_for_bit(device, cent, dtype):
+    """B3 on each per-axis centring mix: odd and even fine shapes, coarse x
+    a multiple of the 16-byte run (4 f32, 8 bf16, 2 f64) and not, tiles cut
+    unevenly in y and x, several runs of coarse planes, with and without a
+    batch of 6: ``torch.equal`` to ``restrict_plain``."""
+    gen = torch.Generator(device=device).manual_seed(sum(c == "c" for c in cent))
+    for coarse, lead in (((5, 7, 9), ()), ((17, 5, 16), ()), ((5, 7, 9), (6,)),
+                         ((9, 19, 67), ()), ((20, 33, 130), (6,)), ((2, 3, 2), ())):
+        fine = tuple(transfer.fine_size(n, c) for n, c in zip(coarse, cent))
+        x = torch.randn((*lead, *fine), generator=gen, device=device,
+                        dtype=torch.float64).to(dtype)
+        before = cuda_transfer.cuda_restrict.launches
+        got = cuda_transfer.cuda_restrict(x, cent)
+        want = transfer.restrict_plain(x, cent)
+        assert got.shape == (*lead, *coarse) and got.dtype == dtype
+        assert torch.equal(got, want)
+        torch.cuda.synchronize()
+        assert cuda_transfer.cuda_restrict.launches - before == 1
 
 
 def test_kernel_wrappers_refuse_bad_input(device):

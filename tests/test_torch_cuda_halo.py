@@ -23,7 +23,7 @@ from multigridanisotropicdiffusion_tpu_torch.ops import (
     transfer,
 )
 from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
-from multigridanisotropicdiffusion_tpu_torch.parallel.transfer import PROLONG, _axis_plan
+from multigridanisotropicdiffusion_tpu_torch.parallel.transfer import PROLONG, RESTRICT, _axis_plan
 
 from .torch_dist_workers import cuda_worker, run_ranks
 
@@ -136,6 +136,48 @@ def test_prolong_block_matches_plain(device, cent, dtype):
         torch.cuda.synchronize()
         assert got.shape == (padded[0] // 2, fine[1], fine[2])
         assert cuda_transfer.cuda_prolong.launches - before == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("cent", [("c", "c", "c"), ("v", "c", "v"), ("c", "v", "c")])
+@pytest.mark.parametrize("split", [0, 1, 2, None])
+def test_restrict_block_matches_plain_bit_for_bit(device, cent, split, dtype):
+    """B3 on the blocks of a restriction split along one axis on two ranks
+    (``parallel/transfer.py``'s plans: starts shifted into the block
+    extended by the neighbour's rows; a vertex axis padded 17 -> 18 with a
+    pad row of weight 0 that starts at 0, which in y or x sends the block
+    to the kernel's per-output form) and on an unsplit level, equal to the
+    plain version of the block form, ``apply_taps_plain`` over axes (0, 1,
+    2)."""
+    fine = (33 if cent[0] == "v" else 32, 35 if cent[1] == "v" else 16,
+            33 if cent[2] == "v" else 18)
+    coarse = tuple(transfer.coarse_size(n, c) for n, c in zip(fine, cent))
+    gen = torch.Generator(device=device).manual_seed(0)
+    for rank in ((0, 1) if split is not None else (0,)):
+        plans, ext, out = [], [], []
+        for d in range(3):
+            if d == split:
+                f, c = -(-fine[d] // 2) * 2, -(-coarse[d] // 2) * 2
+                ax = _axis_plan(RESTRICT, fine[d], cent[d], f, c, True, True, 2, rank)
+                ext.append(f // 2 + sum(ax.recv))
+                out.append(c // 2)
+            else:
+                ax = _axis_plan(RESTRICT, fine[d], cent[d], fine[d], coarse[d], False,
+                                False, 1, 0)
+                ext.append(fine[d])
+                out.append(coarse[d])
+            plans.append(ax)
+        tables = tuple((ax.start, ax.weights) for ax in plans)
+        block = torch.randn(ext, generator=gen, device=device,
+                            dtype=torch.float64).to(dtype)
+        before = cuda_transfer.cuda_restrict.launches
+        got = cuda_transfer.restrict_block(
+            block, cuda_transfer.BlockTables(tables, 4, dtype, block.device))
+        want = transfer.apply_taps_plain(block, tables, (0, 1, 2))
+        assert got.shape == tuple(out)
+        assert torch.equal(got, want)
+        torch.cuda.synchronize()
+        assert cuda_transfer.cuda_restrict.launches - before == 1
 
 
 def _two_ranks(tmp_path, backend):

@@ -240,6 +240,55 @@ def test_nan_eigenvalues_match_plain(device):
     torch.testing.assert_close(t, t_p, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(3, 9, 33), (3, 1, 1), (19, 13, 70), (35, 8, 32),
+                                   (20, 17, 31)])
+def test_fd_vesselness_uneven_runs_and_tiles(device, shape, dtype):
+    """B8 where the run of output planes a block marches down (16) and its
+    32 x 8 (y, x) tile do not divide the shape: one output plane, a single
+    voxel per plane, Y and X not multiples of the tile, 17 and 33 output
+    planes.  The first scale and a select scale against the plain version,
+    the select as in ``test_fd_vesselness_and_assembly_match_plain``."""
+    rel = 1e-12 if dtype == torch.float64 else 1e-5
+    spacing = (1.0, 0.9, 1.1)
+    us1 = _volume(shape, device, 3, dtype)
+    us2 = _volume(shape, device, 4, dtype)
+    f1, f2 = fd_factors(1.245, spacing), fd_factors(2.0, spacing)
+    first = cuda_vesselness.fd_vesselness(us1, f1, PARAMS)
+    first_p = cuda_vesselness.fd_vesselness_plain(us1, f1, PARAMS, None,
+                                                  vesselness_measure)
+    assert torch.equal(first[1], first_p[1])  # every plane is stored, rounded once
+    _check(first[0], first_p[0], rel)
+    new_k = cuda_vesselness.fd_vesselness(us2, f2, PARAMS)[0]
+    new_p = cuda_vesselness.fd_vesselness_plain(us2, f2, PARAMS, None,
+                                                vesselness_measure)[0]
+    incoming = (first[0].clone(), first[1].clone())
+    got = cuda_vesselness.fd_vesselness(us2, f2, PARAMS, first)
+    want = cuda_vesselness.fd_vesselness_plain(us2, f2, PARAMS, incoming,
+                                               vesselness_measure)
+    _check_select(got, want, new_k, new_p, incoming[0], rel)
+    torch.cuda.synchronize()
+
+
+def test_nan_eigenvalues_in_the_select(device):
+    """The voxel of ``_nan_hessian_input`` whose eigenvalues are NaN, in a
+    select scale on either side: NaN eigenvalues are not bright, so its
+    response is 0 and the select decides as the plain version does."""
+    us = _nan_hessian_input(device)
+    facs = fd_factors(1.0, (1.0, 1.0, 1.0))
+    h = cuda_vesselness.fd_vesselness(us, facs, PARAMS)[1]
+    assert bool(torch.isnan(eigvalsh3(h)[:, 1, 3, 5]).all())
+    other = _volume(tuple(us.shape), device, 5)
+    for first_us, second in ((other, us), (us, other)):
+        start = cuda_vesselness.fd_vesselness(first_us, facs, PARAMS)
+        incoming = (start[0].clone(), start[1].clone())
+        got = cuda_vesselness.fd_vesselness(second, facs, PARAMS, start)
+        want = cuda_vesselness.fd_vesselness_plain(second, facs, PARAMS, incoming,
+                                                   vesselness_measure)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6, equal_nan=True)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6, equal_nan=True)
+
+
 def test_gaussian_derivative_through_kernels(device):
     """The reference-faithful Hessian launches B6 (3 shared z passes) and
     B10 (6 y and 6 x passes) per scale, the standalone smooth_fd Hessian

@@ -1,9 +1,12 @@
 """Port parity, transfers: restriction and prolongation against the JAX
 package's ``ops.transfer`` on every level of a (69, 77, 69) hierarchy (the
 vertex-centred chain), an all-cell 32^3 pair and 2D; the transfer kernels'
-tap tables against the JAX package's 1-D matrices; the prolongation's add
-form ``x + P e``; and the library calls that compute the all-cell
+tap tables against the JAX package's 1-D matrices; the tables applied z,
+then y, then x (the restriction kernel's order) equal to the plain
+restriction; the prolongation's add form ``x + P e``; and the library calls that compute the all-cell
 transfers (``chip_smoke.py``'s yardsticks)."""
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -171,3 +174,25 @@ def test_prolong_add_matches_jax(cent):
     want = jnp.asarray(x) + jtransfer.prolong(jnp.asarray(e), cent)
     assert tuple(got.shape) == fine
     assert _rel(got, want) <= 1e-13
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("cent", list(itertools.product((CELL, VERTEX), repeat=3)),
+                         ids="".join)
+def test_restrict_tables_in_zyx_order_equal_plain(cent, dtype):
+    """The order the restriction kernel (B3) rounds in: each axis's 4-tap
+    table (zero-weight border taps included), z, then y, then x, every
+    product and sum rounded on its own, is bit for bit ``restrict_plain``
+    (on finite values a zero tap adds a zero), on odd and even sizes and a
+    batch of six."""
+    rng = np.random.default_rng(len(cent) + sum(c == CELL for c in cent))
+    for fine in ((9, 11, 13), (10, 7, 12)):
+        shape = tuple(n + (1 if c == VERTEX and n % 2 == 0 else 0)
+                      for n, c in zip(fine, cent))
+        for lead in ((), (6,)):
+            x = torch.as_tensor(rng.normal(size=(*lead, *shape)) * 10).to(dtype)
+            tables = [transfer.restrict_taps(n, c) for n, c in zip(shape, cent)]
+            got = transfer.apply_taps_plain(x, tables, (0, 1, 2))
+            want = transfer.restrict_plain(x, cent)
+            assert got.dtype == want.dtype == dtype
+            assert torch.equal(got, want)
