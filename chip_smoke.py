@@ -81,6 +81,15 @@ Phases, one line or more each; any failure exits non-zero:
    tube checks; B14 launched on every rank; each rank's first-call and warm
    seconds and peak device memory on its own line.
 
+Phase 3 holds B6 and B10 to their plain versions' bytes (an integer view,
+signed zeros included): beside the cases above, every form of the two on a
+(37, 45, 51) phantom in float32 and bfloat16 (the five VED scales' g, g1
+and g2 taps, which take the compiled radii 2, 4, 5 and 8, and the generic
+form: r = 9, an interior zero; B6 in valid mode over the taps zero-padded
+to radius 8, as the z-slab pipelines pass them, and in edge mode), B6 at the
+main path's slab (82 -> 66 planes of 512^2, sigma 0.3's padded taps,
+timed), and a field of -0.0, which every pass must keep.
+
 Phase 3 also holds B14, the shard-local stencil kernel (compressed:
 ``halfsweep_local``/``cuda_residual_local`` on random planes non-zero on
 every border, one rank's (256, 512, 512) block of the 512^3 level and a
@@ -98,11 +107,15 @@ The line before the last is ``{"kernels": [...]}``, 20 rows (name, route, source
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
 function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
-float32 at the shape in the row); the last line is ``{"ok": true,
-"device": {...}}``.
+float32 at the shape in the row; ``conv_z`` also gives the main path's 82 ->
+66 plane slab as ``slab``, whose bytes count the 70 input planes that
+sigma 0.3's non-zero taps reach and whose library call is one
+``F.conv3d``); the last line is ``{"ok": true, "device":
+{...}}``.
 
-Tolerances: float32 max |kernel - plain| <= 1e-5 max |plain| (the sums run
-in another order); bfloat16 |kernel - plain| <= one bf16 ulp of each plain
+Tolerances: B3 (the restriction), the prolongation's add form, B6 and B10
+bit for bit; otherwise float32 max |kernel - plain| <= 1e-5 max |plain| (the
+sums may run in another order); bfloat16 |kernel - plain| <= one bf16 ulp of each plain
 value (both compute in float32 and round once), with the float32 bound as a
 floor for values near zero, where cancellation makes the float32 sums
 themselves differ.  B8's Hessian planes are compared where both versions
@@ -135,6 +148,7 @@ BURST = 10
 BURST_BELOW_MS = 2.0
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PARAMS = (0.5, 0.5, 5.0)  # VEDConfig's alpha, beta, gamma
+SCALES = (0.3, 0.482, 0.775, 1.245, 2.0)  # VEDConfig's scales
 TENSOR_PARAMS = (0.01, 5.0, 10.0)  # epsilon, omega, sensitivity
 #: float operations per output voxel, counted from the kernels' sources
 #: (every add, multiply, compare-select and math-library call as one)
@@ -324,12 +338,33 @@ def check(name, got, want):
     return max_err
 
 
+def check_bits(name, got, want, quiet=False):
+    """Hold a kernel's output to its plain version's bytes (signed zeros
+    included), as integers; returns max abs err (0).  ``quiet``: log only a
+    failure."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+    differ = int((got.contiguous().view(ints) != want.contiguous().view(ints)).sum())
+    if differ or not quiet:
+        log(f"  {name}: {differ} of {got.numel()} values differ in their bits, tol=bitwise "
+            f"{'ok' if differ == 0 else 'FAILED'}")
+    if differ:
+        fail(f"{name} is not bit for bit its plain version")
+    return 0.0
+
+
 def median_ms(fn, reps, setup=None):
     """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up call.
     A call that takes less than BURST_BELOW_MS is timed BURST times back to
     back and divided, so that the host's time between two launches (the
-    wrapper's Python) does not count while the card is busy; ``setup`` runs
-    before each call, outside the timed window, one call per timing."""
+    wrapper's Python) does not count while the card is busy; such calls
+    first run one untimed round of ``reps`` bursts, since right after a
+    kernel's check its first round can read slower than every later one
+    (``conv_y`` at 512^3 in float32).  ``setup`` runs before each call,
+    outside the timed window, one call per timing."""
     import torch
 
     if setup:
@@ -342,6 +377,9 @@ def median_ms(fn, reps, setup=None):
     end.record()
     end.synchronize()
     burst = 1 if setup or start.elapsed_time(end) >= BURST_BELOW_MS else BURST
+    if burst > 1:
+        for _ in range(reps * burst):
+            fn()
     times = []
     for _ in range(reps):
         if setup:
@@ -703,8 +741,8 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     suffix, key, record = recorder(tag, u, timings, timed_runs)
 
     # B6, valid mode over the halo: (Z + 2r + 2) -> (Z + 2) planes
-    errs[key("conv_z")] = check(f"conv_z {suffix} {tag}", cuda_conv.conv_z(u_pad, gz, True),
-                                  cuda_conv.conv_z_plain(u_pad, gz, True))
+    errs[key("conv_z")] = check_bits(f"conv_z {suffix} {tag}", cuda_conv.conv_z(u_pad, gz, True),
+                                       cuda_conv.conv_z_plain(u_pad, gz, True))
     wz = torch.as_tensor(gz, dtype=u.dtype, device="cuda").reshape(1, 1, -1, 1, 1)
     u5 = u_pad[None, None]
     record("conv_z", lambda: cuda_conv.conv_z(u_pad, gz, True),
@@ -714,8 +752,8 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     work[key("conv_z")] = ((u_pad.numel() + zs * u[0].numel()) * item,
                              2 * len(gz) * zs * u[0].numel())
     us2_z = cuda_conv.conv_z(u_pad, gz, True)
-    errs[key("conv_edge")] = check(f"conv_z edge {suffix} {tag}", cuda_conv.conv_z(u, gz),
-                                     cuda_conv.conv_z_plain(u, gz))
+    errs[key("conv_edge")] = check_bits(f"conv_z edge {suffix} {tag}", cuda_conv.conv_z(u, gz),
+                                          cuda_conv.conv_z_plain(u, gz))
 
     # B7 on B6's output; the library form is two calls: replicate-pad, conv3d
     errs[key("conv_yx")] = check(f"conv_yx {suffix} {tag}", cuda_conv.conv_yx(us2_z, gy, gx),
@@ -848,8 +886,8 @@ def check_axis_kernels(tag, u, spacing, errs, timings, work, timed_runs, sigma=2
         r = (len(taps) - 1) // 2
         kernel = getattr(cuda_conv, name)
         plain = getattr(cuda_conv, f"{name}_plain")
-        errs[key(name)] = check(f"{name} {suffix} {tag} (r={r})",
-                                kernel(u, taps), plain(u, taps))
+        errs[key(name)] = check_bits(f"{name} {suffix} {tag} (r={r})",
+                                     kernel(u, taps), plain(u, taps))
         w = torch.as_tensor(taps, dtype=u.dtype, device="cuda")
         w = w.reshape(1, 1, 1, -1, 1) if axis == 1 else w.reshape(1, 1, 1, 1, -1)
         pad = (0, 0, r, r, 0, 0) if axis == 1 else (r, r, 0, 0, 0, 0)
@@ -882,6 +920,87 @@ def check_axis_kernels(tag, u, spacing, errs, timings, work, timed_runs, sigma=2
            lambda: cuda_vesselness.fd_hessian_plain(us, facs), library)
     work[key("fd_hessian")] = ((us.numel() + 6 * u.numel()) * item, OPS_FD_HESSIAN * u.numel())
     del us, us5, u5
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_axis_forms(gen, errs, timings, work):
+    """B6 and B10 bit for bit in every form, float32 and bfloat16, on a
+    (37, 45, 51) phantom: the five VED scales' g, g1 and g2 taps (the compiled
+    radii 2, 4, 5 and 8) and the generic form (sigma 2 at spacing 0.9: r = 9;
+    sigma 1.245's taps with an interior zero); B6 in valid mode over the
+    taps zero-padded to radius 8, as the z-slab pipelines pass them, and in
+    edge mode; B10 along y and x.  Then B6 at the main path's slab, 82 -> 66
+    planes of 512^2 with sigma 0.3's padded taps (timed), and a field of
+    -0.0 through every pass (every output -0)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_conv
+    from multigridanisotropicdiffusion_tpu_torch.ops.hessian import gaussian_kernels_1d
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import tube_phantom
+
+    forms = [(f"sigma {s}", gaussian_kernels_1d(s, 1.0)) for s in SCALES]
+    forms.append(("r=9", gaussian_kernels_1d(2.0, 0.9)))
+    hole = [k.copy() for k in gaussian_kernels_1d(1.245, 1.0)]
+    for k in hole:
+        k[2] = 0.0
+    forms.append(("interior zero", hole))
+    small = tube_phantom((37, 45, 51), gen)
+    slab = tube_phantom((82, 512, 512), gen)
+    g = gaussian_kernels_1d(0.3, 1.0)[0]
+    g_slab = np.pad(g, 8 - (len(g) - 1) // 2)
+    slab_plan = cuda_conv.axis_plan(g_slab)
+    for dtype in (torch.float32, torch.bfloat16):
+        u = small.to(dtype)
+        suffix = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        n = 0
+        for name, kernels in forms:
+            for o, taps in enumerate(kernels):
+                r = (len(taps) - 1) // 2
+                padded = np.pad(taps, max(r, 8) - r)
+                up = cuda_conv.edge_pad(u, max(r, 8)).contiguous()
+                plan = cuda_conv.axis_plan(taps).radius
+                for what, got, want in (
+                        ("conv_z valid", cuda_conv.conv_z(up, padded, True),
+                         cuda_conv.conv_z_plain(up, padded, True)),
+                        ("conv_z edge", cuda_conv.conv_z(u, taps), cuda_conv.conv_z_plain(u, taps)),
+                        ("conv_y", cuda_conv.conv_y(u, taps), cuda_conv.conv_y_plain(u, taps)),
+                        ("conv_x", cuda_conv.conv_x(u, taps), cuda_conv.conv_x_plain(u, taps))):
+                    check_bits(f"{what} {suffix} (37, 45, 51) {name} g{o or ''} "
+                               f"({'radius ' + str(plan) if plan else 'generic'})", got, want,
+                               quiet=True)
+                    n += 1
+        zero = torch.full((20, 33, 64), -0.0, dtype=dtype, device="cuda")
+        ints = {2: torch.int16, 4: torch.int32}[zero.element_size()]
+        negzero = int(zero[0, 0, :1].view(ints))
+        for sigma in (0.3, 2.0):
+            gz = gaussian_kernels_1d(sigma, 1.0)[0]
+            for got in (cuda_conv.conv_z(zero, gz), cuda_conv.conv_y(zero, gz),
+                        cuda_conv.conv_x(zero, gz)):
+                if not bool((got.view(ints) == negzero).all()):
+                    fail(f"a -0.0 field through B6/B10 ({suffix}, sigma {sigma}) lost its sign")
+        log(f"  B6/B10 forms {suffix} (37, 45, 51): {n} passes bit for bit (radii "
+            f"{sorted({cuda_conv.axis_plan(k).radius for _, ks in forms for k in ks})}, "
+            f"0 = generic); a -0.0 field keeps its sign")
+        s_in = slab.to(dtype)
+        tag = "82->66 slab"
+        _, key, record = recorder(tag, s_in, timings, True)
+        errs[key("conv_z")] = check_bits(f"conv_z {suffix} {tag} (sigma 0.3 padded to r = 8)",
+                                         cuda_conv.conv_z(s_in, g_slab, True),
+                                         cuda_conv.conv_z_plain(s_in, g_slab, True))
+        w5 = torch.as_tensor(g_slab, dtype=dtype, device="cuda").reshape(1, 1, -1, 1, 1)
+        s5 = s_in[None, None]
+        record("conv_z", lambda: cuda_conv.conv_z(s_in, g_slab, True),
+               lambda: cuda_conv.conv_z_plain(s_in, g_slab, True),
+               lambda: F.conv3d(s5, w5))
+        # the 66 outputs' non-zero taps reach 66 + 2 r input planes, not all 82
+        plane = s_in[0].numel()
+        work[key("conv_z")] = ((2 * 66 + 2 * slab_plan.r) * plane * s_in.element_size(),
+                               2 * len(slab_plan.weights) * 66 * plane)
+        del u, s_in, s5
+    del small, slab
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -923,6 +1042,8 @@ def phase_kernels(gen):
     # sigma = 2 at z spacing 0.25: r = 32 along z (and 16 on y and x)
     check_ved_kernels("(40, 48, 56) r=32", tube_phantom((40, 48, 56), gen),
                       (0.25, 0.5, 0.5), errs, timings, work, False)
+    log("  B6 and B10 in every form, and at the main path's slab")
+    check_axis_forms(gen, errs, timings, work)
     torch.cuda.empty_cache()
     check_local(gen, errs, timings, work)
     check_stored_and_2d(gen, errs, timings, work)
@@ -1789,6 +1910,12 @@ def main():
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "shape": list(shape), "dtype": dtype, "case": tag,
         }
+        if name == "conv_z":
+            # the main path's launches: one z slab of the 512^3 VED call
+            slab = ("conv_z f32", "82->66 slab")
+            row["slab"] = dict(zip(("ms", "plain_ms", "library_ms"), timings[slab]),
+                               case=slab[1], bound_ms=bound_ms(*work[slab])[0],
+                               max_abs_err=errs[slab])
         if name == "fd_vesselness":
             first = "fd_vesselness first f32"
             row["first_ms"], row["first_plain_ms"], _ = timings[(first, "512^3")]

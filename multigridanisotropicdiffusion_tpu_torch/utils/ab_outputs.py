@@ -9,7 +9,10 @@ uniform in [0, 255), from seed 0 on the device, as ``chip_smoke.py``'s
 phase 5) and the VED 512^3 call (``VEDConfig.cuda()`` on the tube phantom
 from seed 1), and writes into DIR: the outputs (``mad.pt``, ``ved.pt``), the first outer
 iteration's vesselness and tensor (``fused_vesselness_tensor`` on the input
-volume: ``first_resp.pt``, ``first_tensor.pt``), and ``summary.json`` with
+volume: ``first_resp.pt``, ``first_tensor.pt``), the same for the
+reference-faithful Hessian (``VEDConfig.cuda(hessian_mode=
+"gaussian_derivative")``: ``gd_first_resp.pt``, ``gd_first_tensor.pt``),
+and ``summary.json`` with
 the MAD solve's cycles and relative residual history, the last VED solve's,
 and a SHA-256 of each saved tensor's bytes.  ``compare`` prints, for two
 such directories, whether the cycle counts agree, the residual histories,
@@ -30,7 +33,7 @@ import sys
 import torch
 
 SHAPE = (512, 512, 512)
-NAMES = ("mad", "ved", "first_resp", "first_tensor")
+NAMES = ("mad", "ved", "first_resp", "first_tensor", "gd_first_resp", "gd_first_tensor")
 
 
 def _sha256(t: torch.Tensor) -> str:
@@ -56,12 +59,14 @@ def run(out_dir: str) -> dict:
     del tensor, b, res
     vol = tube_phantom(SHAPE, torch.Generator(device="cuda").manual_seed(1))
     cfg = VEDConfig.cuda()
-    resp, tens = fused_vesselness_tensor(
-        vol, tuple(cfg.scales), (1.0,) * 3, cfg.alpha, cfg.beta, cfg.gamma, cfg.epsilon,
-        cfg.omega, cfg.sensitivity, z_slab=_auto_z_slab(SHAPE, cfg.pipeline_z_slab),
-        hessian_mode=cfg.hessian_mode, pipeline_dtype=cfg.pipeline_dtype,
-        use_kernels=cfg.use_kernels)
-    outs["first_resp"], outs["first_tensor"] = resp, tens
+    for prefix, c in (("", cfg), ("gd_", VEDConfig.cuda(hessian_mode="gaussian_derivative"))):
+        resp, tens = fused_vesselness_tensor(
+            vol, tuple(c.scales), (1.0,) * 3, c.alpha, c.beta, c.gamma, c.epsilon,
+            c.omega, c.sensitivity, z_slab=_auto_z_slab(SHAPE, c.pipeline_z_slab),
+            hessian_mode=c.hessian_mode, pipeline_dtype=c.pipeline_dtype,
+            use_kernels=c.use_kernels)
+        outs[f"{prefix}first_resp"], outs[f"{prefix}first_tensor"] = resp, tens
+        del resp, tens
     res = ved(vol, config=cfg, device="cuda")
     d = res.diffusion
     summary["ved_last_solve"] = {

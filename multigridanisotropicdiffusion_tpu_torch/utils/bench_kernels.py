@@ -1,5 +1,6 @@
-"""Time the transfer kernels (B3, B4), the fused y+x Gaussian (B7), the
-fused FD Hessian + vesselness + select (B8) and the standalone FD Hessian
+"""Time the transfer kernels (B3, B4), the Gaussian z pass (B6), the fused
+y+x Gaussian (B7), the fused FD Hessian + vesselness + select (B8), the
+single-axis Gaussian-derivative passes (B10) and the standalone FD Hessian
 (B11) at the main path's shapes, on one CUDA card.
 
     python -m multigridanisotropicdiffusion_tpu_torch.utils.bench_kernels \\
@@ -13,6 +14,15 @@ Cases, float32 and bfloat16 storage, inputs made on the device from seed 0:
 * ``correction``: the V-cycle's ``x + P e`` at 512^3, as ``x +
   cuda_prolong(e)`` (two launches) and, where the package has it, as one
   launch of the add form ``cuda_prolong_add``;
+* ``conv_z``: valid mode over the tube phantom, each of the VED's five
+  scales' taps zero-padded to radius 8 as the z-slab pipelines pass them:
+  530 -> 514 planes of 512^2 (a 512^3 volume's smooth_fd halo, unsliced)
+  and the 82 -> 66 plane slab (``smooth_fd``: the Gaussian), and the 80 ->
+  64 plane slab (``gaussian_derivative``: g, g1 and g2);
+* ``conv_y``, ``conv_x``: each scale's g2 and g1 taps on 512^3 and on a 64
+  plane slab of 512^2 (the ``gaussian_derivative`` pipeline's shape);
+* ``conv_z x=510``, ``conv_y x=510``: rows of 510 values, which are not
+  whole 16-byte vectors (no main-path shape has them);
 * ``conv_yx``: 514 planes of 512^2 (a 512^3 volume's smoothed field with
   its two FD halo planes), the tube phantom, with each of the VED's five
   scales' Gaussian taps at unit spacing (r = 2, 2, 4, 5, 8);
@@ -30,13 +40,15 @@ Each case is first held against its plain version (float32 within 1e-5 of
 max|plain|, bf16 within one bf16 ulp of each value, floored at that; B8's
 select: the response only, since a near-tie may flip a decision; the add
 form bit for bit ``x + cuda_prolong(e)``), and ``equal`` says whether the
-output is bit for bit the plain version's.  ``sha256`` is a hash of the
+output is bit for bit the plain version's (B6 and B10 must be: a case of
+theirs that is not fails).  ``sha256`` is a hash of the
 output's bytes (B8: the response, then the six planes), so that two trees'
 outputs can be compared.  Then, unless ``--check-only``, the median of 20
 CUDA-event timings of 10 back-to-back calls each (per call) after a
 warm-up (B8's select: one call per timing, after the restore), with the
 least time the card could take for the bytes moved (each input read once,
-each output written once, at 3.35 TB/s).  Before the B8 cases, a line
+each output written once, at 3.35 TB/s; B6 reads only the planes that its
+non-zero taps reach).  Before the B8 cases, a line
 per VED scale gives the share of the 514-plane phantom field's voxels that
 are bright (the two largest-magnitude eigenvalues negative: the voxels
 whose vesselness is not 0), counted from the plain eigenvalues.  Prints
@@ -60,6 +72,7 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
@@ -91,6 +104,16 @@ def _median_ms(fn, reps=20, burst=10, setup=None):
     return statistics.median(times)
 
 
+def _valid_z_bytes(taps, planes_out, plane_bytes):
+    """Bytes a valid-mode z pass must move: the output planes, and the input
+    planes that its non-zero taps reach (the plain version skips zero taps,
+    so the zero-padded ends of the taps read nothing)."""
+    nonzero = np.flatnonzero(taps)
+    c = (len(taps) - 1) // 2
+    r = max(c - nonzero[0], nonzero[-1] - c)
+    return (2 * planes_out + 2 * r) * plane_bytes
+
+
 def _max_err(got, want):
     """Max |got - want|, or None if it exceeds the tolerance."""
     g, w = got.double(), want.double()
@@ -103,6 +126,13 @@ def _max_err(got, want):
         ok = err.max().item() <= 1e-5 * scale
     ok = ok and bool(torch.isfinite(g).all())
     return err.max().item() if ok else None
+
+
+def _same_bits(a, b):
+    """Whether two tensors hold the same bytes (signed zeros included)."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(
+        a.contiguous().view(ints[a.element_size()]), b.contiguous().view(ints[b.element_size()])))
 
 
 def _sha256(*tensors):
@@ -146,9 +176,11 @@ def main(argv=None) -> int:
     vol = tube_phantom((514, 512, 512), gen)
     cases, failed = [], []
 
-    def case(name, dtype, fn, want, nbytes, same=None, setup=None, parts=None):
+    def case(name, dtype, fn, want, nbytes, same=None, setup=None, parts=None,
+             bitwise=False):
         """``parts(got)``: the tensors of the output that are hashed (the
-        first is checked against ``want``); default the output itself."""
+        first is checked against ``want``); default the output itself.
+        ``bitwise``: the output must be ``want``'s bits."""
         if args.only and not name.startswith(tuple(args.only)):
             return
         if setup:
@@ -160,7 +192,9 @@ def main(argv=None) -> int:
             equal = err == 0.0
         else:
             err = _max_err(outs[0], want)
-            equal = bool(torch.equal(outs[0], want))
+            equal = _same_bits(outs[0], want)
+            if bitwise and not equal:
+                err = None
         row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err, "equal": equal, "sha256": _sha256(*outs),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
@@ -262,6 +296,53 @@ def main(argv=None) -> int:
                  2 * u.numel() * item)
         del u
         torch.cuda.empty_cache()
+    def axis_cases(dtype):
+        """B6 on the padded taps of every scale, B10 on every scale's g2 and
+        g1 taps, at the whole volume and at the slabs."""
+        item = torch.finfo(dtype).bits // 8
+        u = ved_vol.to(dtype)
+        for planes in (530, 82, 80):
+            a = u[:planes].contiguous()
+            orders = (0, 1, 2) if planes == 80 else (0,)
+            for sigma in SIGMAS:
+                kernels = gaussian_kernels_1d(sigma, 1.0)
+                for o in orders:
+                    taps = np.pad(kernels[o], 8 - (len(kernels[o]) - 1) // 2)
+                    case(f"conv_z {planes}->{planes - 16} g{o or ''} (sigma {sigma})", dtype,
+                         lambda: cuda_conv.conv_z(a, taps, True),
+                         cuda_conv.conv_z_plain(a, taps, True),
+                         _valid_z_bytes(taps, planes - 16, a[0].numel() * item),
+                         bitwise=True)
+            del a
+        # rows that are not whole 16-byte vectors (x % 4 != 0)
+        a = u[:530, :, :510].contiguous()
+        for sigma in (0.3, 2.0):
+            g = gaussian_kernels_1d(sigma, 1.0)[0]
+            taps = np.pad(g, 8 - (len(g) - 1) // 2)
+            case(f"conv_z x=510 530->514 (sigma {sigma})", dtype,
+                 lambda: cuda_conv.conv_z(a, taps, True), cuda_conv.conv_z_plain(a, taps, True),
+                 _valid_z_bytes(taps, 514, a[0].numel() * item), bitwise=True)
+        a = u[:512, :, :510].contiguous()
+        g2 = gaussian_kernels_1d(2.0, 1.0)[2]
+        case("conv_y x=510 512 planes g2 (sigma 2.0)", dtype, lambda: cuda_conv.conv_y(a, g2),
+             cuda_conv.conv_y_plain(a, g2), 2 * a.numel() * item, bitwise=True)
+        del a
+        for planes in (512, 64):
+            a = u[:planes].contiguous()
+            for sigma in SIGMAS:
+                for o in (2, 1):
+                    taps = gaussian_kernels_1d(sigma, 1.0)[o]
+                    for name in ("conv_y", "conv_x"):
+                        fn, plain = getattr(cuda_conv, name), getattr(cuda_conv, f"{name}_plain")
+                        case(f"{name} {planes} planes g{o} (sigma {sigma})", dtype,
+                             lambda: fn(a, taps), plain(a, taps), 2 * a.numel() * item,
+                             bitwise=True)
+            del a
+        del u
+        torch.cuda.empty_cache()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        axis_cases(dtype)
     for dtype in (torch.float32, torch.bfloat16):
         fd_cases(dtype)
     print(json.dumps({"cases": cases}))

@@ -69,14 +69,17 @@ SIGNATURES = {
     "mad_prolong_add3d": (_P, _P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
     # tensor, out, nz, ny, nx, w2 (3), wd (9), stream
     "mad_assemble_compressed": (_P, _P, _I, _I, _I) + (_D,) * 12 + (_STREAM,),
-    # in, out, z in, ny, nx, z out, host taps, taps, valid, stream
-    "mad_conv_z": (_P, _P, _I, _I, _I, _I, _P, _I, ctypes.c_int, _STREAM),
+    # in, out, z in, ny, nx, z out, window base (valid: the stripped taps'
+    # shift; edge: -r), compiled radius (0: generic), host weights, host
+    # int32 offsets, taps, radius, stream
+    "mad_conv_z": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _I, _STREAM),
     # in, out, nz, ny, nx, compiled radius (0: generic), then per axis (y, x)
     # host weights, host int32 offsets, taps, radius; stream
     "mad_conv_yx": (_P, _P, _I, _I, _I, _I) + (_P, _P, _I, _I) * 2 + (_STREAM,),
-    # in, out, nz, ny, nx, host taps, taps, stream
-    "mad_conv_y": (_P, _P, _I, _I, _I, _P, _I, _STREAM),
-    "mad_conv_x": (_P, _P, _I, _I, _I, _P, _I, _STREAM),
+    # in, out, nz, ny, nx, compiled radius (0: generic), host weights, host
+    # int32 offsets, taps, radius, stream
+    "mad_conv_y": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _STREAM),
+    "mad_conv_x": (_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _STREAM),
     # us, resp, h, nz, ny, nx, facs (6), 2 alpha^2, 2 beta^2, 2 gamma^2,
     # first, stream
     "mad_fd_vesselness": (_P, _P, _P, _I, _I, _I) + (_D,) * 9

@@ -15,6 +15,7 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import time
@@ -22,11 +23,13 @@ import time
 import torch
 
 SHAPE = (512, 512, 512)
+#: the convolution kernels (B6, B7, B10) all start so; each is also summed
+#: on its own
+CONV_PREFIX = "conv_"
 #: kernel-name fragments of each group
 GROUPS = {
-    "pipeline kernels (B6-B11)": ("conv_z_kernel", "conv_tile_kernel", "conv_yx_kernel",
-                                  "fd_vesselness_kernel", "tensor_assembly_kernel",
-                                  "fd_hessian_kernel"),
+    "pipeline kernels (B6-B11)": (CONV_PREFIX, "fd_vesselness_kernel",
+                                  "tensor_assembly_kernel", "fd_hessian_kernel"),
     "solve (B1-B5)": ("stencil_kernel", "restrict_kernel", "prolong_kernel",
                       "assemble_kernel"),
 }
@@ -86,6 +89,14 @@ def profile_one(vol, cfg, ved) -> int:
         grouped[group] += _device_us(e) / 1e6
     for g, s in grouped.items():
         print(f"  {g}: {s * 1e3:.2f} ms, {s / device:.1%} of device time")
+    families = {}
+    for e in kernels:
+        fam = re.search(rf"\b{CONV_PREFIX}\w+_kernel", e.key)
+        if fam:
+            families.setdefault(fam.group(0), []).append(e)
+    for fam, hits in sorted(families.items()):
+        print(f"  {fam}: {sum(_device_us(e) for e in hits) / 1e3:.2f} ms in "
+              f"{sum(e.count for e in hits)} launches")
     print(f"  {'device ms':>10} {'share':>6} {'calls':>6}  kernel")
     for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
         print(f"  {_device_us(e) / 1e3:10.3f} {_device_us(e) / 1e6 / device:6.1%} "

@@ -10,7 +10,8 @@ to the last bits wherever the math library does; they are held to float64
 each value (f32 floor near zero), except where two correct versions may
 legitimately part: a select decision at a near-tie (B8's Hessian planes)
 and a degenerate top eigenvalue (B9's eigenvector), both counted and
-bounded.
+bounded.  B6 and B10 are also held to their plain versions' bytes (an
+integer view: signed zeros count), B7 with ``torch.equal``.
 """
 
 import numpy as np
@@ -140,6 +141,88 @@ def test_conv_axis_kernels_match_plain(device, shape, sigma, spacing, dtype):
                           (cuda_conv.conv_x(u, taps), cuda_conv.conv_x_plain(u, taps))):
             _check(got, want)
             assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+_INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _same_bits(got, want):
+    """The two tensors hold the same bytes (signed zeros included)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    ints = _INTS[got.element_size()]
+    assert torch.equal(got.contiguous().view(ints), want.contiguous().view(ints))
+
+
+def _axis_kernels(case):
+    """The g, g1 and g2 taps of a B6/B10 case: each compiled radius (the VED
+    scales at unit spacing), and the generic form (r = 9, r = 32, a kernel
+    with an interior zero)."""
+    sigma, spacing = {"r=2": (0.3, 1.0), "r=4": (0.775, 1.0), "r=5": (1.245, 1.0),
+                      "r=8": (2.0, 1.0), "r=9": (2.0, 0.9), "r=32": (2.0, 0.25),
+                      "hole": (1.245, 1.0)}[case]
+    kernels = [k.copy() for k in gaussian_kernels_1d(sigma, spacing)]
+    if case == "hole":
+        for k in kernels:
+            k[2] = 0.0
+    return kernels
+
+
+def _misaligned(u):
+    """``u``'s values, contiguous, one element past a 16-byte boundary."""
+    buf = torch.empty(u.numel() + 1, dtype=u.dtype, device=u.device)
+    out = buf[1:].view(u.shape)
+    out.copy_(u)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(37, 45, 51), (66, 512, 512), (9, 20, 130), "misaligned"],
+                         ids=str)
+@pytest.mark.parametrize("case", ["r=2", "r=4", "r=5", "r=8", "r=9", "r=32", "hole"])
+def test_single_axis_kernels_match_plain_bit_for_bit(device, shape, case, dtype):
+    """B6 (valid mode over the taps zero-padded to radius 8 or more, as the
+    z-slab pipelines pass them: the (66, 512, 512) case is the 82 -> 66
+    slab; and edge mode) and B10 (y, x) hold their plain versions' bytes,
+    for each derivative order: rows of whole 16-byte vectors and rows
+    without (x % 4 != 0; an input one element off a 16-byte boundary)."""
+    u = (_misaligned(_volume((12, 16, 128), device, dtype=dtype)) if shape == "misaligned"
+         else _volume(shape, device, dtype=dtype))
+    before = [f.launches for f in GD_COUNTERS]
+    kernels = _axis_kernels(case)
+    for taps in kernels:
+        r = (len(taps) - 1) // 2
+        padded = np.pad(taps, max(r, 8) - r)
+        up = cuda_conv.edge_pad(u, max(r, 8)).contiguous()
+        _same_bits(cuda_conv.conv_z(up, padded, valid=True),
+                   cuda_conv.conv_z_plain(up, padded, valid=True))
+        _same_bits(cuda_conv.conv_z(u, taps), cuda_conv.conv_z_plain(u, taps))
+        _same_bits(cuda_conv.conv_y(u, taps), cuda_conv.conv_y_plain(u, taps))
+        _same_bits(cuda_conv.conv_x(u, taps), cuda_conv.conv_x_plain(u, taps))
+    torch.cuda.synchronize()
+    n = len(kernels)
+    assert [f.launches - b for f, b in zip(GD_COUNTERS, before)] == [2 * n, n, n]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(20, 33, 64), (20, 33, 51)])
+def test_single_axis_kernels_keep_negative_zero(device, shape, dtype):
+    """A field of -0.0 through Gaussian taps: every product is -0, and each
+    sum starts at its first product, so every output is -0, as the plain
+    version's (compiled radii and the generic form)."""
+    u = torch.full(shape, -0.0, dtype=dtype, device=device)
+    negzero = torch.full((1,), -0.0, dtype=dtype).view(_INTS[u.element_size()]).item()
+    for sigma, spacing in ((0.3, 1.0), (2.0, 1.0), (2.0, 0.25)):
+        g = gaussian_kernels_1d(sigma, spacing)[0]
+        padded = np.pad(g, 2)
+        up = cuda_conv.edge_pad(u, (len(padded) - 1) // 2).contiguous()
+        for got, want in ((cuda_conv.conv_z(u, g), cuda_conv.conv_z_plain(u, g)),
+                          (cuda_conv.conv_z(up, padded, valid=True),
+                           cuda_conv.conv_z_plain(up, padded, valid=True)),
+                          (cuda_conv.conv_y(u, g), cuda_conv.conv_y_plain(u, g)),
+                          (cuda_conv.conv_x(u, g), cuda_conv.conv_x_plain(u, g))):
+            _same_bits(got, want)
+            assert bool((got.view(_INTS[u.element_size()]) == negzero).all())
     torch.cuda.synchronize()
 
 
