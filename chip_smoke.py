@@ -99,9 +99,12 @@ of the 512^3 collapsed level 1), B10 (``conv_y``, ``conv_x``: 512^3 float32 and 
 valid-z smoothed 512^3 field of 514 planes, float32 and bfloat16, and
 (39, 45, 51)) against their plain versions, and B12 and B13: B12 on the
 512^3 19-plane stored DCA operator, on level 1 (256^3) of the 512^3
-collapsed and exact Galerkin hierarchies and on every level of (69, 77, 69)
-vertex-centred Galerkin hierarchies; B13 on 8192^2 compressed and stored
-operators and on a (1531, 997) grid.
+collapsed and exact Galerkin hierarchies, that exact level pruned at 1e-3,
+level 2 (128^3, 125 planes) of the exact hierarchy, and on every level of
+(69, 77, 69) vertex-centred Galerkin hierarchies; B13 on 8192^2 compressed
+and stored operators and on a (1531, 997) grid.  B12 and B13's stored
+form are held to their plain versions' bytes, the shard-local stored form
+with ``torch.equal``.
 
 The line before the last is ``{"kernels": [...]}``, 20 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
@@ -281,8 +284,10 @@ VED_KERNELS = STENCIL_3D + ("conv_z", "conv_yx", "fd_vesselness", "tensor_assemb
 GD_KERNELS = STENCIL_3D + ("conv_z", "conv_y", "conv_x")
 #: B12/B13 cases reported beside the row's own (phase-3 tags)
 EXTRA_CASES = {
-    "stencil_stored_halfsweep": ("512^3 stored DCA", "256^3 exact"),
-    "stencil_stored_residual": ("512^3 stored DCA", "256^3 exact"),
+    "stencil_stored_halfsweep": ("512^3 stored DCA", "256^3 exact", "128^3 exact",
+                                 "256^3 exact pruned"),
+    "stencil_stored_residual": ("512^3 stored DCA", "256^3 exact", "128^3 exact",
+                                "256^3 exact pruned"),
     "stencil_2d_halfsweep": ("8192^2 stored",),
     "stencil_2d_residual": ("8192^2 stored",),
     "stencil_halfsweep_local": (),
@@ -353,6 +358,21 @@ def check_bits(name, got, want, quiet=False):
             f"{'ok' if differ == 0 else 'FAILED'}")
     if differ:
         fail(f"{name} is not bit for bit its plain version")
+    return 0.0
+
+
+def check_equal(name, got, want):
+    """Hold a kernel's output to its plain version with ``torch.equal``
+    (equal values; an exact zero may differ in sign); returns max abs err
+    (0)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    ok = bool(torch.equal(got, want))
+    log(f"  {name}: torch.equal={ok} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fail(f"{name} does not equal its plain version")
     return 0.0
 
 
@@ -531,11 +551,13 @@ def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_run
                   local=False):
     """B12 (``module`` = ``ops.cuda_stencil_stored``) or B13
     (``ops.cuda_stencil2d``) on one float32 operator: both half-sweeps and
-    the residual in float32 and bfloat16 against the plain versions.  With
-    ``local``, the shard-local form B14 (``halfsweep_local``,
-    ``cuda_residual_local``; ``module`` = ``ops.cuda_smoothers`` for the
-    compressed operator).  With ``timed_runs``: CUDA-event medians and each
-    call's work, (K + 3) values per cell and 2 K float operations."""
+    the residual in float32 and bfloat16 against the plain versions, a
+    stored operator's bit for bit (B12, B13 stored), a compressed
+    operator's within the tolerances.  With ``local``, the shard-local form
+    B14 (``halfsweep_local``, ``cuda_residual_local``; ``module`` =
+    ``ops.cuda_smoothers`` for the compressed operator), the stored form
+    held with ``torch.equal``.  With ``timed_runs``: CUDA-event medians and
+    each call's work, (K + 3) values per cell and 2 K float operations."""
     import torch
 
     shape = op32.shape
@@ -557,10 +579,12 @@ def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_run
         cases.append((f"{prefix}_residual {suffix}",
                       lambda: resid(op, x, b),
                       lambda: resid_plain(op, x, b)))
+        stored = hasattr(op32, "offsets")
+        compare = (check if not stored else check_equal if local else check_bits)
         for name, kernel, plain in cases:
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            errs[(name, tag)] = check(f"{name} {tag} (K={k})", got, want)
+            errs[(name, tag)] = compare(f"{name} {tag} (K={k})", got, want)
             del got, want
             if timed_runs:
                 ms = timings[(name, tag)] = (median_ms(kernel, 10), median_ms(plain, 3))
@@ -619,7 +643,16 @@ def check_stored_and_2d(gen, errs, timings, work):
     del collapsed, block
     check_stencil("stored", "256^3 exact", cuda_stencil_stored, exact, gen, errs,
                   timings, work, True)
+    # a pruned level (the generic loop), and the exact hierarchy's level 2
+    # (128^3, 125 planes)
+    check_stencil("stored", "256^3 exact pruned", cuda_stencil_stored,
+                  galerkin.prune_stored_operator(exact, 1e-3), gen, errs, timings, work, True)
+    level2 = galerkin.assemble_galerkin_parabolic(exact, (CELL,) * 3)
     del exact
+    torch.cuda.empty_cache()
+    check_stencil("stored", "128^3 exact", cuda_stencil_stored, level2, gen, errs,
+                  timings, work, True)
+    del level2
     torch.cuda.empty_cache()
     shape = (69, 77, 69)
     t = spd_tensor_field(shape, gen)
@@ -1939,10 +1972,15 @@ def main():
         for extra in EXTRA_CASES.get(name, ()):
             e_ms, e_plain = timings[(case, extra)]
             e_bytes, e_ops, e_shape, _ = work[(case, extra)]
-            row.setdefault("other_cases", []).append({
-                "case": extra, "shape": list(e_shape), "ms": e_ms, "plain_ms": e_plain,
-                "bound_ms": bound_ms(e_bytes, e_ops)[0],
-                "max_abs_err": errs[(case, extra)]})
+            other = {"case": extra, "shape": list(e_shape), "ms": e_ms, "plain_ms": e_plain,
+                     "bound_ms": bound_ms(e_bytes, e_ops)[0],
+                     "max_abs_err": errs[(case, extra)]}
+            e16 = (case.replace("f32", "bf16"), extra)
+            if e16 in timings:
+                other["bf16"] = dict(zip(("ms", "plain_ms"), timings[e16]),
+                                     bound_ms=bound_ms(*work[e16][:2])[0],
+                                     max_abs_err=errs[e16])
+            row.setdefault("other_cases", []).append(other)
         rows.append(row)
     print(json.dumps({"solves": solves + solves_2d + kernel_less + dist_solves}))
     log(smi)

@@ -56,40 +56,6 @@ inline unsigned blocks_for(int64_t n, int per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
-// Offset table of a stored stencil operator, passed to a kernel by value
-// (so every launch carries its own level's table): plane t multiplies
-// x[p + (d[t][0], d[t][1], d[t][2])] in (z, y, x) order; 2D tables keep
-// z = 0.  At most 125 offsets (radius 2 in 3D).
-constexpr int kMaxOffsets = 125;
-struct OffsetTable {
-  int n;
-  int center;
-  int radius;
-  signed char d[kMaxOffsets][3];
-};
-
-// The table from the host's (n, ndim) int32 array; false if it does not fit.
-inline bool offset_table(const void* host, int64_t n, int64_t center, int ndim,
-                         OffsetTable* t) {
-  if (n < 1 || n > kMaxOffsets || center < 0 || center >= n || ndim < 1 ||
-      ndim > 3) {
-    return false;
-  }
-  const int32_t* h = static_cast<const int32_t*>(host);
-  t->n = static_cast<int>(n);
-  t->center = static_cast<int>(center);
-  t->radius = 0;
-  for (int64_t k = 0; k < n; ++k) {
-    for (int a = 0; a < 3; ++a) {
-      const int v = a < 3 - ndim ? 0 : h[k * ndim + a - (3 - ndim)];
-      if (v < -127 || v > 127) return false;
-      t->d[k][a] = static_cast<signed char>(v);
-      t->radius = v > t->radius ? v : (-v > t->radius ? -v : t->radius);
-    }
-  }
-  return true;
-}
-
 }  // namespace mad
 
 // Instantiates MACRO(suffix, storage type) for each supported storage type.

@@ -1,109 +1,60 @@
-// Red-black Gauss-Seidel half-sweep and residual on a 3D stored stencil
-// operator: K coefficient planes with a run-time offset table.
+// B12: red-black Gauss-Seidel half-sweep and residual on a 3D stored
+// stencil operator (K coefficient planes, the host's tap plan), and its
+// shard-local form B14 stored (the same kernel on a rank's block).
 //
 // Replaces the Pallas kernel `_stencil_kernel` with `_emit_halfsweep` and
 // `_emit_residual` in its stored form, `_offdiag_contraction_stored`
 // (multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py, built by
-// `_build_stencil_pass` with `offsets` given).
+// `_build_stencil_pass` with `offsets` given).  The kernel, its bound and its
+// design are in stencil_stored.cuh; this file compiles its 3D forms: radius
+// 1 (the 19-plane stored DCA operator, 27-plane collapsed Galerkin levels)
+// and radius 2 (exact Galerkin levels: 117 planes on the first coarse level,
+// 125 below), each tap count compiled in, and the generic loop for any other
+// count (pruned levels) and for rows that are not whole 4-cell vectors.
 //
-//   half-sweep:  out[p] = (z+y+x) % 2 == color
-//                         ? (b[p] - sum_{k != c} A_k[p] x[p + o_k]) / A_c[p]
-//                         : x[p]
-//   residual:    out[p] = b[p] - A_c[p] x[p] - sum_{k != c} A_k[p] x[p + o_k]
+// Out of place: offsets like (+-2,0,0) and (+-1,+-1,0) couple cells of the
+// same colour; red (colour 0) goes first.  On a rank's block the zero ring
+// is exactly the plain version's masking of every term across the block's
+// border (`_mask_local_shells_stored`), up to the sign of an exact zero.
 //
-// The operators: stored DCA (19 planes), collapsed Galerkin levels (27) and
-// exact Galerkin levels (up to 117-125 planes, radius 2 in every dimension,
-// x included).  The planes stay in the operator's own order; the table and
-// the centre index come from the operator, by value in the launch.
-//
-// Borders: a term whose neighbour lies outside the grid is skipped, as the
-// plain version's zero padding makes it 0, whatever its coefficient (the
-// assembled operators hold exact zeros there, tests feed random planes).
-// Cells at least `R` (the radius, a template parameter) from every border
-// skip the range checks.  Out of place: offsets like (+-2,0,0) and
-// (+-1,+-1,0) couple cells of the same colour; red (colour 0) goes first.
-//
-// Bound on the card: device-memory bandwidth.  Each cell reads K planes,
-// b and x and writes 1 value: (K + 3) values per cell (11.8 GB per f32
-// call for the 19-plane operator at 512^3, 8.05 GB for 117 planes at
-// 256^3).  The neighbours of x hit L1/L2.  Design: one thread per cell,
-// threads along x so each plane read is coalesced, the offset loop at run
-// time (the table is uniform across a warp), 64-bit element offsets.
-// 16-bit storage computes in f32 and rounds once at the store.
-#include "common.cuh"
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (utils/bench_kernels.py;
+// PERF.md), f32 [bf16] share of the bound: 512^3 stored DCA 90-91%
+// [89-90%], 256^3 exact level 91-92% [86-88%], 128^3 125-plane level
+// 90-92% [90-91%], 256^3 collapsed level 86-90% [85-87%], a pruned
+// 81-plane level (the generic loop) 89% [73-79%]; the one-thread-per-cell
+// kernel it replaces ran at 44-59% [23-32%], 1.5-2.0x [2.7-4.0x] slower.  SASS per
+// tap and lane (utils/sass_count.py): ~43-48 instructions for a residual's 4
+// cells (8 of them float), ~28-34 for a half-sweep's 2; at the card's issue
+// rate that is, by estimate, about 2/3 of a bf16 call's time.
+#include "stencil_stored.cuh"
 
 namespace {
 
-constexpr int kBX = 32;
-constexpr int kBY = 8;
+using mad::stored::Plan;
 
-template <typename T, int R, bool kResidual>
-__global__ void __launch_bounds__(kBX * kBY)
-    stored_kernel(const T* __restrict__ planes, const T* __restrict__ x,
-                  const T* __restrict__ b, T* __restrict__ out, int64_t nz,
-                  int64_t ny, int64_t nx, const mad::OffsetTable tab,
-                  int color) {
-  using A = typename mad::Compute<T>::type;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBX + threadIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBY + threadIdx.y;
-  const int64_t k = blockIdx.z;
-  if (i >= nx || j >= ny) return;
-  const int64_t sz = ny * nx;
-  const int64_t n = nz * sz;
-  const int64_t c = k * sz + j * nx + i;
-  if (!kResidual && static_cast<int>((k + j + i) & 1) != color) {
-    out[c] = x[c];
-    return;
-  }
-  const bool interior = k >= R && k < nz - R && j >= R && j < ny - R &&
-                        i >= R && i < nx - R;
-  A off = A(0);
-  for (int t = 0; t < tab.n; ++t) {
-    if (t == tab.center) continue;
-    const int dz = tab.d[t][0];
-    const int dy = tab.d[t][1];
-    const int dx = tab.d[t][2];
-    if (!interior && (k + dz < 0 || k + dz >= nz || j + dy < 0 ||
-                      j + dy >= ny || i + dx < 0 || i + dx >= nx)) {
-      continue;
-    }
-    off += mad::load(planes + t * n + c) *
-           mad::load(x + c + dz * sz + dy * nx + dx);
-  }
-  const A diag = mad::load(planes + tab.center * n + c);
-  const A bv = mad::load(b + c);
-  if (kResidual) {
-    mad::store(out + c, bv - diag * mad::load(x + c) - off);
-  } else {
-    mad::store(out + c, (bv - off) / diag);
-  }
-}
-
-template <typename T, bool kResidual>
-int launch(const void* planes, const void* x, const void* b, void* out,
-           int64_t nz, int64_t ny, int64_t nx, const void* host_offsets,
-           int64_t n_offsets, int64_t center, int color, void* stream) {
-  mad::OffsetTable tab;
-  if (!mad::offset_table(host_offsets, n_offsets, center, 3, &tab) ||
-      tab.radius > 2) {
+template <typename T, bool kRes>
+int launch(const void* planes, const void* x, const void* b, void* out, int64_t nz,
+           int64_t ny, int64_t nx, const void* host_plan, int64_t n_taps,
+           int64_t center, int color, void* stream) {
+  Plan plan;
+  int rz = 0, r = 0;
+  if (nz < 1 || ny < 1 || nx < 1 ||
+      !mad::stored::make_plan(host_plan, n_taps, center, nz * ny * nx, 3, &plan, &rz,
+                              &r) ||
+      r > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 block(kBX, kBY);
-  const dim3 grid(mad::blocks_for(nx, kBX), mad::blocks_for(ny, kBY),
-                  static_cast<unsigned>(nz));
-  const auto s = static_cast<cudaStream_t>(stream);
   const T* p = static_cast<const T*>(planes);
   const T* xv = static_cast<const T*>(x);
   const T* bv = static_cast<const T*>(b);
   T* o = static_cast<T*>(out);
-  if (tab.radius <= 1) {
-    stored_kernel<T, 1, kResidual><<<grid, block, 0, s>>>(p, xv, bv, o, nz, ny,
-                                                          nx, tab, color);
-  } else {
-    stored_kernel<T, 2, kResidual><<<grid, block, 0, s>>>(p, xv, bv, o, nz, ny,
-                                                          nx, tab, color);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (r == 1) {
+    return mad::stored::launch_taps<T, 1, 1, kRes, 18, 26>(p, xv, bv, o, nz, ny, nx,
+                                                           plan, color, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return mad::stored::launch_taps<T, 2, 2, kRes, 116, 124>(p, xv, bv, o, nz, ny, nx,
+                                                           plan, color, s);
 }
 
 }  // namespace
@@ -111,17 +62,17 @@ int launch(const void* planes, const void* x, const void* b, void* out,
 #define MAD_STORED_ENTRY(SUF, T)                                              \
   extern "C" int mad_stencil_stored_halfsweep_##SUF(                          \
       const void* planes, const void* x, const void* b, void* out,            \
-      int64_t nz, int64_t ny, int64_t nx, const void* host_offsets,           \
-      int64_t n_offsets, int64_t center, int color, void* stream) {           \
-    return launch<T, false>(planes, x, b, out, nz, ny, nx, host_offsets,      \
-                            n_offsets, center, color, stream);                \
+      int64_t nz, int64_t ny, int64_t nx, const void* host_plan,              \
+      int64_t n_taps, int64_t center, int color, void* stream) {              \
+    return launch<T, false>(planes, x, b, out, nz, ny, nx, host_plan, n_taps, \
+                            center, color, stream);                           \
   }                                                                           \
   extern "C" int mad_stencil_stored_residual_##SUF(                           \
       const void* planes, const void* x, const void* b, void* out,            \
-      int64_t nz, int64_t ny, int64_t nx, const void* host_offsets,           \
-      int64_t n_offsets, int64_t center, void* stream) {                      \
-    return launch<T, true>(planes, x, b, out, nz, ny, nx, host_offsets,       \
-                           n_offsets, center, 0, stream);                     \
+      int64_t nz, int64_t ny, int64_t nx, const void* host_plan,              \
+      int64_t n_taps, int64_t center, void* stream) {                         \
+    return launch<T, true>(planes, x, b, out, nz, ny, nx, host_plan, n_taps,  \
+                           center, 0, stream);                                \
   }
 
 MAD_FOR_EACH_TYPE(MAD_STORED_ENTRY)

@@ -5,9 +5,11 @@ operators (``csrc/stencil_2d.cu``).
 Counterpart of ``multigridanisotropicdiffusion_tpu.ops.pallas_smoothers``
 in its 2D form (``_build_stencil_pass_2d``): the compressed operator's six
 ``(fp_y, fm_y, fp_x, fm_x, m_yx, diag)`` planes, or a stored operator's at
-most nine planes with its offset table and centre index as launch
-arguments.  Each wrapper takes the plain PyTorch version for a CPU tensor;
-for a CUDA tensor it launches the kernel or raises.  Storage may be float32,
+most nine planes with its tap plan (``cuda_stencil_stored.tap_plan``) and
+centre index as launch arguments: the stored form is B12's kernel on one
+plane, every product and sum rounded on its own, so it is its plain
+version's bytes.  Each wrapper takes the plain PyTorch version for a CPU
+tensor; for a CUDA tensor it launches the kernel or raises.  Storage may be float32,
 bfloat16 or float64; 16-bit storage computes in float32 and rounds once at
 the store.
 
@@ -23,10 +25,12 @@ from ..core.stencil import StencilOperator
 from ..utils.build import check_launch, kernel, require_cuda, stream_of
 from .compressed import CompressedDCAOperator
 from .cuda_stencil_stored import (
+    check_grid,
     halfsweep_plain,
-    offset_table,
+    layout,
     rbgs_sweep_plain,
     residual_plain,
+    tap_plan,
 )
 
 __all__ = ["cuda_residual", "halfsweep", "halfsweep_plain", "rbgs_sweep",
@@ -38,7 +42,7 @@ def _check(name: str, op, x: torch.Tensor, b: torch.Tensor) -> None:
         if op.ndim != 2:
             raise ValueError(f"{name}: needs a 2D operator, got {op!r}")
         planes = op.planes
-    elif isinstance(op, StencilOperator) and op.ndim == 2 and op.radius == 1:
+    elif isinstance(op, StencilOperator) and layout(op.offsets)[:2] == (2, 1):
         planes = op.coeffs
     else:
         raise ValueError(f"{name}: needs a 2D compressed operator or a 2D stored "
@@ -48,8 +52,11 @@ def _check(name: str, op, x: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(
             f"{name}: x {tuple(x.shape)} / b {tuple(b.shape)} != operator {op.shape}"
         )
-    if (op.shape[0] + 7) // 8 > 65535:
-        raise ValueError(f"{name}: grid of {op.shape} exceeds the launch limits")
+    if isinstance(op, CompressedDCAOperator):
+        if (op.shape[0] + 7) // 8 > 65535:
+            raise ValueError(f"{name}: grid of {op.shape} exceeds the launch limits")
+    else:
+        check_grid(name, op.shape, x.dtype)
 
 
 def _launch(kind: str, op, x, b, *color) -> torch.Tensor:
@@ -61,9 +68,9 @@ def _launch(kind: str, op, x, b, *color) -> torch.Tensor:
                                      stream_of(x))
     else:
         entry = f"mad_stencil2d_stored_{kind}"
-        table = offset_table(op.offsets)
-        err = kernel(entry, x.dtype)(op.coeffs.data_ptr(), *args, table.ctypes.data,
-                                     len(op.offsets), op.center_index, *color,
+        plan = tap_plan(op.offsets)
+        err = kernel(entry, x.dtype)(op.coeffs.data_ptr(), *args, plan.ctypes.data,
+                                     len(plan), layout(op.offsets)[2], *color,
                                      stream_of(x))
     check_launch(err, entry)
     return out

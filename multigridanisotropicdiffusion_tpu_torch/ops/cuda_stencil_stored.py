@@ -1,23 +1,26 @@
 """The stencil kernel on 3D stored operators: red-black Gauss-Seidel
-half-sweeps and the residual (``csrc/stencil_stored.cu``).
+half-sweeps and the residual (``csrc/stencil_stored.cu``, the kernel in
+``csrc/stencil_stored.cuh``).
 
 Counterpart of ``multigridanisotropicdiffusion_tpu.ops.pallas_smoothers``
 in its stored form (``_build_stencil_pass`` with ``offsets`` given): the
 19-plane stored DCA operator, collapsed Galerkin levels (27 planes) and
-exact Galerkin levels (radius 2, up to 125 planes).  The kernel takes the
-operator's ``(K, Z, Y, X)`` planes in their own order with the offset table
-and the centre index as launch arguments.  Each wrapper takes the plain
-PyTorch version for a CPU tensor; for a CUDA tensor it launches the kernel
-or raises.  Storage may be float32, bfloat16 or float64; 16-bit storage
-computes in float32 and rounds once at the store.
+exact Galerkin levels (radius 2, up to 125 planes), in any order.  The
+kernel takes the operator's ``(K, Z, Y, X)`` planes in their own order
+with the host's tap plan (:func:`tap_plan`) and the centre index as launch
+arguments.  Each wrapper takes the plain PyTorch version for a CPU tensor;
+for a CUDA tensor it launches the kernel or raises.  Storage may be
+float32, bfloat16 or float64; 16-bit storage computes in float32 and rounds
+once at the store.  Every product and sum rounds on its own, in the plain
+version's order, so a kernel's output is its plain version's bytes.
 
 The shard-local form of radius-1 operators (B14 stored, the JAX package's
 ``local_mask=True`` with ``offsets``; ``halfsweep_local``,
-``cuda_residual_local``) needs no kernel of its own: the kernel skips every
-term whose neighbour lies outside the array, which on a rank's block is
-exactly ``_mask_local_shells_stored`` (:func:`mask_local_shells_stored`,
-the plain versions' masking).  It runs the same kernel under its own launch
-counters.
+``cuda_residual_local``) needs no kernel of its own: the kernel reads every
+neighbour outside the array as 0, which on a rank's block is
+``_mask_local_shells_stored`` (:func:`mask_local_shells_stored`, the plain
+versions' masking) up to the sign of an exact zero.  It runs the same
+kernel under its own launch counters.
 
 ``halfsweep.launches``, ``cuda_residual.launches``,
 ``halfsweep_local.launches`` and ``cuda_residual_local.launches`` count
@@ -35,7 +38,7 @@ from ..core.stencil import StencilOperator, compute_dtype
 from ..utils.build import check_launch, kernel, require_cuda, stream_of
 from .smoothers import gs_halfsweep
 
-#: the kernel's offset table holds at most this many planes (radius 2 in 3D)
+#: the kernel's tap plan holds at most this many planes (radius 2 in 3D)
 MAX_OFFSETS = 125
 
 
@@ -60,17 +63,65 @@ def rbgs_sweep_plain(op, x, b):
     return x
 
 
+#: the kernel's tile (``csrc/stencil_stored.cuh``): a block owns 128
+#: columns of ``TILE_Y[dtype]`` rows; a lane owns ``VEC`` consecutive cells;
+#: the staged x rows keep the column phases (column mod ``VEC``) apart,
+#: ``PHASE`` values each, ``ROW`` values a row, the tile's first column at
+#: phase 0, index 1
+TILE_X, VEC, PHASE = 128, 4, 34
+ROW = VEC * PHASE
+TILE_Y = {torch.float32: 8, torch.bfloat16: 8, torch.float64: 4}
+#: the y extent of one launch: ``ceil(Y / TILE_Y)`` blocks at most
+MAX_GRID_Y = 65535
+
+
+def ring_offset(dy: int, dx: int, j: int) -> int:
+    """Offset, in the staged x tile, of the neighbour ``(dy, dx)`` of a
+    lane's cell ``j``, from the lane's base (its row, index ``lane`` of
+    phase 0; the cell itself is at phase ``j``, one index further): column
+    ``j + dx`` lies at phase ``(j + dx) mod VEC``, one index further per
+    ``VEC`` columns."""
+    q = j + dx
+    return dy * ROW + (q % VEC) * PHASE + 1 + q // VEC
+
+
 @functools.lru_cache(maxsize=256)
-def offset_table(offsets) -> np.ndarray:
-    """The offsets as the C-contiguous ``(K, ndim)`` int32 array the kernels
-    copy into their launch argument."""
-    table = np.ascontiguousarray(np.asarray(offsets, dtype=np.int32))
-    table.flags.writeable = False  # shared by every caller of the cache
-    return table
+def tap_plan(offsets) -> np.ndarray:
+    """The kernels' tap plan of an offset table: one C-contiguous int32 row
+    per non-centre offset, in the operator's order: plane index, ``dz``,
+    ``dy``, ``dx`` (``dz`` 0 in 2D) and :func:`ring_offset` of each of a
+    lane's ``VEC`` cells.  Cached per table (every level of a hierarchy
+    shares a few); the launchers check each row against their geometry."""
+    rows = []
+    for t, off in enumerate(offsets):
+        dz, dy, dx = (0,) * (3 - len(off)) + tuple(int(o) for o in off)
+        if (dz, dy, dx) == (0, 0, 0):
+            continue
+        rows.append([t, dz, dy, dx] + [ring_offset(dy, dx, j) for j in range(VEC)])
+    plan = np.ascontiguousarray(np.asarray(rows, dtype=np.int32).reshape(-1, 4 + VEC))
+    plan.flags.writeable = False  # shared by every caller of the cache
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def layout(offsets) -> tuple[int, int, int]:
+    """``(ndim, radius, centre index)`` of an offset table, cached per table:
+    the operator's ``radius`` walks every offset, which every launch of a
+    level would pay again."""
+    ndim = len(offsets[0])
+    return ndim, max(abs(o) for off in offsets for o in off), offsets.index((0,) * ndim)
+
+
+def check_grid(name: str, shape, dtype: torch.dtype) -> None:
+    """Raise if a ``(..., Y, X)`` field is taller than one launch takes."""
+    if -(-shape[-2] // TILE_Y[dtype]) > MAX_GRID_Y:
+        raise ValueError(f"{name}: {shape[-2]} rows exceed the launch limit of "
+                         f"{MAX_GRID_Y * TILE_Y[dtype]} for {dtype}")
 
 
 def _check(name: str, op, x: torch.Tensor, b: torch.Tensor) -> None:
-    if not isinstance(op, StencilOperator) or op.ndim != 3 or not 1 <= op.radius <= 2:
+    ndim, radius, _ = layout(op.offsets) if isinstance(op, StencilOperator) else (0, 0, 0)
+    if ndim != 3 or not 1 <= radius <= 2:
         raise ValueError(f"{name}: needs a 3D stored operator of radius 1 or 2, "
                          f"got {op!r}")
     if len(op.offsets) > MAX_OFFSETS:
@@ -80,17 +131,15 @@ def _check(name: str, op, x: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(
             f"{name}: x {tuple(x.shape)} / b {tuple(b.shape)} != operator {op.shape}"
         )
-    nz, ny, _ = op.shape
-    if nz > 65535 or (ny + 7) // 8 > 65535:
-        raise ValueError(f"{name}: grid of {op.shape} exceeds the launch limits")
+    check_grid(name, op.shape, x.dtype)
 
 
 def _launch(entry: str, op, x, b, *color) -> torch.Tensor:
     out = torch.empty_like(x)
-    table = offset_table(op.offsets)
+    plan = tap_plan(op.offsets)
     err = kernel(entry, x.dtype)(
         op.coeffs.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
-        *op.shape, table.ctypes.data, len(op.offsets), op.center_index,
+        *op.shape, plan.ctypes.data, len(plan), layout(op.offsets)[2],
         *color, stream_of(x),
     )
     check_launch(err, entry)
@@ -173,7 +222,7 @@ def residual_local_plain(op: StencilOperator, x: torch.Tensor,
 
 def _check_local(name, op, x, b):
     _check(name, op, x, b)
-    if op.radius != 1:
+    if layout(op.offsets)[1] != 1:
         raise ValueError(f"{name}: the shard-local form takes radius-1 operators")
 
 

@@ -1,4 +1,4 @@
-"""Save the 512^3 main paths' outputs of one tree, and compare two trees'.
+"""Save the main paths' outputs of one tree, and compare two trees'.
 
     python -m multigridanisotropicdiffusion_tpu_torch.utils.ab_outputs run DIR
     python -m multigridanisotropicdiffusion_tpu_torch.utils.ab_outputs compare DIR_A DIR_B
@@ -12,15 +12,18 @@ iteration's vesselness and tensor (``fused_vesselness_tensor`` on the input
 volume: ``first_resp.pt``, ``first_tensor.pt``), the same for the
 reference-faithful Hessian (``VEDConfig.cuda(hessian_mode=
 "gaussian_derivative")``: ``gd_first_resp.pt``, ``gd_first_tensor.pt``),
-and ``summary.json`` with
-the MAD solve's cycles and relative residual history, the last VED solve's,
-and a SHA-256 of each saved tensor's bytes.  ``compare`` prints, for two
-such directories, whether the cycle counts agree, the residual histories,
+the Galerkin solves of the MAD 512^3 inputs (``coarse_operator=
+"galerkin"``, collapsed and exact: ``gal_collapsed.pt``, ``gal_exact.pt``),
+the collapsed Galerkin 8192^2 solve (``spd_tensor_field`` and b from seed
+0, as ``chip_smoke.py``'s phase 8: ``gal2d_collapsed.pt``), and
+``summary.json`` with each solve's cycles and relative residual history,
+the last VED solve's, and a SHA-256 of each saved tensor's bytes.
+``compare`` prints, for two such directories, whether the cycle counts agree, the residual histories,
 whether each hash agrees and the relative L2 difference of each tensor, as
 one JSON line.  Two trees are compared by running ``run`` in each: copies
 of this script and of ``utils/phantom.py`` in an older tree run that tree's
 kernels (the script imports only modules the package has had since its
-VED kernels).
+Galerkin levels and VED kernels).
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import sys
 import torch
 
 SHAPE = (512, 512, 512)
-NAMES = ("mad", "ved", "first_resp", "first_tensor", "gd_first_resp", "gd_first_tensor")
+SOLVES = ("mad", "gal_collapsed", "gal_exact", "gal2d_collapsed")
+NAMES = SOLVES + ("ved", "first_resp", "first_tensor", "gd_first_resp", "gd_first_tensor")
 
 
 def _sha256(t: torch.Tensor) -> str:
@@ -50,13 +54,27 @@ def run(out_dir: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     tensor = spd_tensor_field(SHAPE, gen)
     b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
-    res = mad_diffusion(b, tensor, config=MADConfig.cuda(time_step=0.1, tolerance=1e-6),
-                        device="cuda")
-    n = int(res.num_cycles[0])
-    summary["mad"] = {"cycles": res.num_cycles.tolist(),
-                      "history": res.residual_history[0, :n].tolist()}
-    outs = {"mad": res.output}
-    del tensor, b, res
+    outs = {}
+
+    def solve(key, b, tensor, **kw):
+        res = mad_diffusion(b, tensor, config=MADConfig.cuda(time_step=0.1, tolerance=1e-6,
+                                                             **kw), device="cuda")
+        n = int(res.num_cycles[0])
+        summary[key] = {"cycles": res.num_cycles.tolist(),
+                        "history": res.residual_history[0, :n].tolist()}
+        outs[key] = res.output
+
+    solve("mad", b, tensor)
+    solve("gal_collapsed", b, tensor, coarse_operator="galerkin")
+    solve("gal_exact", b, tensor, coarse_operator="galerkin", galerkin_variant="exact")
+    del tensor, b
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tensor = spd_tensor_field((8192, 8192), gen)
+    b = torch.rand((8192, 8192), generator=gen, device="cuda") * 255.0
+    solve("gal2d_collapsed", b, tensor, coarse_operator="galerkin")
+    del tensor, b
+    torch.cuda.empty_cache()
     vol = tube_phantom(SHAPE, torch.Generator(device="cuda").manual_seed(1))
     cfg = VEDConfig.cuda()
     for prefix, c in (("", cfg), ("gd_", VEDConfig.cuda(hessian_mode="gaussian_derivative"))):
@@ -88,9 +106,9 @@ def compare(dir_a: str, dir_b: str) -> dict:
     for d in (dir_a, dir_b):
         with open(os.path.join(d, "summary.json")) as f:
             sums.append(json.load(f))
-    row = {"same_cycles": {k: sums[0][k]["cycles"] == sums[1][k]["cycles"]
-                           for k in ("mad", "ved_last_solve")},
-           "history": {k: [s[k]["history"] for s in sums] for k in ("mad", "ved_last_solve")},
+    keys = SOLVES + ("ved_last_solve",)
+    row = {"same_cycles": {k: sums[0][k]["cycles"] == sums[1][k]["cycles"] for k in keys},
+           "history": {k: [s[k]["history"] for s in sums] for k in keys},
            "same_hash": {k: sums[0]["sha256"][k] == sums[1]["sha256"][k] for k in NAMES},
            "rel_l2": {}}
     for k in NAMES:

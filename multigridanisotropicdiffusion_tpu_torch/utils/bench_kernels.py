@@ -1,7 +1,8 @@
 """Time the transfer kernels (B3, B4), the Gaussian z pass (B6), the fused
 y+x Gaussian (B7), the fused FD Hessian + vesselness + select (B8), the
-single-axis Gaussian-derivative passes (B10) and the standalone FD Hessian
-(B11) at the main path's shapes, on one CUDA card.
+single-axis Gaussian-derivative passes (B10), the standalone FD Hessian
+(B11) and the stored-operator stencils (B12, B13's stored form) at the main
+path's shapes, on one CUDA card.
 
     python -m multigridanisotropicdiffusion_tpu_torch.utils.bench_kernels \\
         [--check-only] [--only PREFIX ...]
@@ -34,33 +35,48 @@ Cases, float32 and bfloat16 storage, inputs made on the device from seed 0:
 * ``fd_hessian``: B11 on the sigma 2 field;
 * ``fill_``: a plain write of a 512^3 field, what the card's memory takes
   for the bytes the prolongation writes (a yardstick, not a kernel of the
-  package).
+  package);
+* ``stored``: B12's half-sweeps (both colours) and residual on the 512^3
+  19-plane stored DCA operator and, built from the same 512^3 tensor field
+  as ``chip_smoke.py``'s phase 3 builds them, level 1 of the exact Galerkin
+  hierarchy (256^3, 117 planes), its collapse (27 planes: the collapsed
+  hierarchy's level 1), that level pruned at 1e-3 (the generic loop), and
+  the exact hierarchy's level 2 (128^3, 125 planes); ``stored_local``: one
+  rank's (128, 256, 256) block of the collapsed level through the
+  shard-local form (B14 stored);
+* ``2d_stored``: B13's stored form on the 9-plane stored DCA operator at
+  8192^2 and (1531, 997) (a width that is not whole 4-cell vectors).
 
 Each case is first held against its plain version (float32 within 1e-5 of
 max|plain|, bf16 within one bf16 ulp of each value, floored at that; B8's
 select: the response only, since a near-tie may flip a decision; the add
 form bit for bit ``x + cuda_prolong(e)``), and ``equal`` says whether the
-output is bit for bit the plain version's (B6 and B10 must be: a case of
-theirs that is not fails).  ``sha256`` is a hash of the
-output's bytes (B8: the response, then the six planes), so that two trees'
-outputs can be compared.  Then, unless ``--check-only``, the median of 20
-CUDA-event timings of 10 back-to-back calls each (per call) after a
-warm-up (B8's select: one call per timing, after the restore), with the
-least time the card could take for the bytes moved (each input read once,
-each output written once, at 3.35 TB/s; B6 reads only the planes that its
-non-zero taps reach).  Before the B8 cases, a line
-per VED scale gives the share of the 514-plane phantom field's voxels that
-are bright (the two largest-magnitude eigenvalues negative: the voxels
-whose vesselness is not 0), counted from the plain eigenvalues.  Prints
-the card's name and power limit, one line per case, and a last line
-``{"cases": [...]}``.  Exits 1 if a check fails or there is no card.
+output is bit for bit the plain version's (B6, B10, B12 and B13's stored
+form must be: a case of theirs that is not fails, and is still timed; the
+shard-local form must be ``torch.equal``, the sign of an exact zero aside).
+``sha256`` is a hash of the output's bytes (B8: the response, then the six
+planes), so that two trees' outputs can be compared. Then, unless
+``--check-only``, the median of 20 CUDA-event timings of 10 back-to-back
+calls each (per call) after a warm-up (B8's select: one call per timing,
+after the restore; B12 and B13's stored form: the 10 calls replayed from a
+CUDA graph, so that the (1531, 997) cases, shorter than the wrappers' host
+time, are timed on the card), with the least time the card could take for
+the bytes moved (each input read once, each output written once, at 3.35
+TB/s; B6 reads only the planes that its non-zero taps reach; B12 and B13
+(K + 3) values per cell). Before the B8 cases, a line per VED scale gives the
+share of the 514-plane phantom field's voxels that are bright (the two
+largest-magnitude eigenvalues negative: the voxels whose vesselness is not
+0), counted from the plain eigenvalues. Prints the card's name and power
+limit, one line per case, and a last line ``{"cases": [...]}``.  Exits 1 if a check fails or there is no card.
 
-The script imports only what every version of the package since the first
-transfer kernels has (``ops.cuda_transfer``, ``ops.cuda_conv``,
+The script imports only what every version of the package since the
+stored-operator kernels has (``ops.cuda_transfer``, ``ops.cuda_conv``,
 ``ops.transfer``, ``ops.hessian``, ``ops.cuda_vesselness``,
-``ops.eigen3``, ``models.ved``, ``utils.phantom``), so a copy of it in an
-older tree times that tree's kernels: two trees are compared in one call by
-running it in each, in turns.
+``ops.eigen3``, ``ops.cuda_stencil_stored``, ``ops.cuda_stencil2d``,
+``ops.dca``, ``ops.compressed``, ``ops.galerkin``, ``core``,
+``models.ved``, ``utils.phantom``), so a copy of it in an older tree times
+that tree's kernels: two trees are compared in one call by running it in
+each, in turns (``--only stored --only 2d_stored``: B12 and B13 alone).
 """
 
 from __future__ import annotations
@@ -80,15 +96,28 @@ SIGMAS = (0.3, 0.482, 0.775, 1.245, 2.0)
 PARAMS = (0.5, 0.5, 5.0)  # VEDConfig's alpha, beta, gamma
 
 
-def _median_ms(fn, reps=20, burst=10, setup=None):
+def _median_ms(fn, reps=20, burst=10, setup=None, graph=False):
     """Median over ``reps`` CUDA-event timings of ``burst`` back-to-back
     calls, per call: the wrapper's host time overlaps the card's work.
     With ``setup``: one call per timing, each after ``setup()``, which is
-    left to run on the card (so the call's launch overlaps it)."""
+    left to run on the card (so the call's launch overlaps it).  With
+    ``graph``: the burst is captured once in a CUDA graph and each timing
+    replays it, so a call shorter than its wrapper's host time is timed on
+    the card, not on the host."""
     if setup:
         burst = 1
         setup()
     fn()
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(burst):
+                fn()
     times = []
     for _ in range(reps):
         if setup:
@@ -96,8 +125,11 @@ def _median_ms(fn, reps=20, burst=10, setup=None):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(burst):
-            fn()
+        if graph:
+            g.replay()
+        else:
+            for _ in range(burst):
+                fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / burst)
@@ -176,11 +208,19 @@ def main(argv=None) -> int:
     vol = tube_phantom((514, 512, 512), gen)
     cases, failed = [], []
 
+    def wanted(prefix):
+        """Whether any case whose name starts with ``prefix`` may run."""
+        return not args.only or any(prefix.startswith(p) or p.startswith(prefix)
+                                    for p in args.only)
+
     def case(name, dtype, fn, want, nbytes, same=None, setup=None, parts=None,
-             bitwise=False):
+             bitwise=False, equal_values=False, graph=False):
         """``parts(got)``: the tensors of the output that are hashed (the
         first is checked against ``want``); default the output itself.
-        ``bitwise``: the output must be ``want``'s bits."""
+        ``bitwise``: the output must be ``want``'s bits; ``equal_values``:
+        ``torch.equal`` to it (a case that is not fails; it is still timed
+        if it is within the tolerance, so that an older tree's kernel that
+        rounds otherwise can be compared)."""
         if args.only and not name.startswith(tuple(args.only)):
             return
         if setup:
@@ -192,17 +232,16 @@ def main(argv=None) -> int:
             equal = err == 0.0
         else:
             err = _max_err(outs[0], want)
-            equal = _same_bits(outs[0], want)
-            if bitwise and not equal:
-                err = None
+            equal = (bool(torch.equal(outs[0], want)) if equal_values
+                     else _same_bits(outs[0], want))
         row = {"case": name, "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err, "equal": equal, "sha256": _sha256(*outs),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         del got, outs
-        if err is None:
+        if err is None or ((bitwise or equal_values) and not equal):
             failed.append(name)
-        elif not args.check_only:
-            row["ms"] = _median_ms(fn, setup=setup)
+        if err is not None and not args.check_only:
+            row["ms"] = _median_ms(fn, setup=setup, graph=graph)
         cases.append(row)
         print(json.dumps(row), flush=True)
 
@@ -265,7 +304,10 @@ def main(argv=None) -> int:
         del us1, us2
         torch.cuda.empty_cache()
 
+    transfers = ("restrict3d", "prolong3d", "correction", "fill_", "conv_yx")
     for dtype in (torch.float32, torch.bfloat16):
+        if not any(wanted(p) for p in transfers):
+            break
         item = torch.finfo(dtype).bits // 8
         x, e = fine32.to(dtype), coarse32.to(dtype)
         cells = x.numel()
@@ -341,10 +383,90 @@ def main(argv=None) -> int:
         del u
         torch.cuda.empty_cache()
 
+    def stencil_cases(prefix, tag, module, op32, local=False):
+        """B12 (``module`` = ``ops.cuda_stencil_stored``; ``local``: its
+        shard-local form) or B13's stored form (``ops.cuda_stencil2d``) on
+        one float32 operator: both half-sweeps and the residual in float32
+        and bfloat16, bit for bit the plain versions (the local form: equal
+        values, ``torch.equal``); (K + 3) values per cell."""
+        k = len(op32.offsets)
+        gen_x = torch.Generator(device="cuda").manual_seed(k)
+        x32 = torch.randn(op32.shape, generator=gen_x, device="cuda") * 10.0
+        b32 = torch.rand(op32.shape, generator=gen_x, device="cuda") * 255.0
+        sfx = "_local" if local else ""
+        sweep, sweep_plain = (getattr(module, f"halfsweep{sfx}"),
+                              getattr(module, f"halfsweep{sfx}_plain"))
+        resid, resid_plain = (getattr(module, f"cuda_residual{sfx}"),
+                              getattr(module, f"residual{sfx}_plain"))
+        for dtype in (torch.float32, torch.bfloat16):
+            op, x, b = op32.astype(dtype), x32.to(dtype), b32.to(dtype)
+            nbytes = (k + 3) * x.numel() * x.element_size()
+            calls = [(f"halfsweep{c}", lambda c=c: sweep(op, x, b, c),
+                      lambda c=c: sweep_plain(op, x, b, c)) for c in (0, 1)]
+            calls.append(("residual", lambda: resid(op, x, b), lambda: resid_plain(op, x, b)))
+            for what, fn, plain in calls:
+                name = f"{prefix} {tag} (K={k}) {what}"
+                if args.only and not name.startswith(tuple(args.only)):
+                    continue
+                case(name, dtype, fn, plain(), nbytes, bitwise=not local,
+                     equal_values=local, graph=True)
+            del op, x, b
+        del x32, b32
+        torch.cuda.empty_cache()
+
+    if wanted("stored"):
+        # B12 on the solves' stored operators, built as chip_smoke.py's phase 3
+        # builds them from the 512^3 tensor field: the 19-plane stored DCA
+        # operator, level 1 of the exact Galerkin hierarchy (117 planes) and
+        # its collapse (27 planes; bit for bit the collapsed hierarchy's level
+        # 1), the exact hierarchy's level 2 (125 planes at 128^3), level 1
+        # pruned at 1e-3 (``galerkin_prune_tol``), and one rank's (128, 256,
+        # 256) block of the collapsed level through the shard-local form
+        from ..core.grids import CELL
+        from ..core.stencil import StencilOperator
+        from ..ops import compressed, cuda_stencil_stored, dca, galerkin
+        from .phantom import spd_tensor_field
+
+        t = spd_tensor_field((512,) * 3, torch.Generator(device="cuda").manual_seed(0))
+        stencil_cases("stored", "512^3 DCA", cuda_stencil_stored,
+                      dca.assemble_dca(t, (1.0,) * 3, 0.1))
+        op0 = compressed.assemble_compressed_dca(t, (1.0,) * 3, 0.1)
+        del t
+        exact = galerkin.assemble_galerkin_parabolic(op0, (CELL,) * 3)
+        del op0
+        torch.cuda.empty_cache()
+        collapsed = galerkin.collapse_to_radius1(exact)
+        stencil_cases("stored", "256^3 collapsed", cuda_stencil_stored, collapsed)
+        block = StencilOperator(collapsed.coeffs[:, :128].contiguous(), collapsed.offsets)
+        del collapsed
+        stencil_cases("stored_local", "(128, 256, 256) block", cuda_stencil_stored, block,
+                      local=True)
+        del block
+        stencil_cases("stored", "256^3 exact", cuda_stencil_stored, exact)
+        stencil_cases("stored", "256^3 exact pruned 1e-3", cuda_stencil_stored,
+                      galerkin.prune_stored_operator(exact, 1e-3))
+        level2 = galerkin.assemble_galerkin_parabolic(exact, (CELL,) * 3)
+        del exact
+        torch.cuda.empty_cache()
+        stencil_cases("stored", "128^3 exact", cuda_stencil_stored, level2)
+        del level2
+        torch.cuda.empty_cache()
+    if wanted("2d_stored"):
+        # B13's stored form: the 9-plane stored DCA operator
+        from ..ops import cuda_stencil2d, dca
+        from .phantom import spd_tensor_field
+
+        for shape, spacing in (((8192, 8192), (1.0, 1.0)), ((1531, 997), (1.0, 0.7))):
+            t = spd_tensor_field(shape, torch.Generator(device="cuda").manual_seed(1))
+            stencil_cases("2d_stored", f"{shape[0]}x{shape[1]}", cuda_stencil2d,
+                          dca.assemble_dca(t, spacing, 0.1))
+            del t
     for dtype in (torch.float32, torch.bfloat16):
-        axis_cases(dtype)
+        if wanted("conv_z") or wanted("conv_y") or wanted("conv_x"):
+            axis_cases(dtype)
     for dtype in (torch.float32, torch.bfloat16):
-        fd_cases(dtype)
+        if wanted("fd_"):
+            fd_cases(dtype)
     print(json.dumps({"cases": cases}))
     if failed:
         print(f"FAILED against the plain versions: {failed}", file=sys.stderr)

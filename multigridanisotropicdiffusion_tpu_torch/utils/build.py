@@ -88,8 +88,8 @@ SIGNATURES = {
     "mad_fd_hessian": (_P, _P, _I, _I, _I) + (_D,) * 6 + (_STREAM,),
     # resp, h, out, voxels, 1/sensitivity, epsilon - 1, omega - epsilon, stream
     "mad_tensor_assembly": (_P, _P, _P, _I, _D, _D, _D, _STREAM),
-    # planes, x, b, out, nz, ny, nx, host offsets (K, 3) int32, K, centre,
-    # color, stream
+    # planes, x, b, out, nz, ny, nx, host tap plan (K - 1, 8) int32
+    # (``ops.cuda_stencil_stored.tap_plan``), K - 1, centre, color, stream
     "mad_stencil_stored_halfsweep": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
                                      ctypes.c_int, _STREAM),
     "mad_stencil_stored_residual": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
@@ -98,8 +98,8 @@ SIGNATURES = {
     "mad_stencil2d_compressed_halfsweep": (_P, _P, _P, _P, _I, _I, ctypes.c_int,
                                            _STREAM),
     "mad_stencil2d_compressed_residual": (_P, _P, _P, _P, _I, _I, _STREAM),
-    # planes, x, b, out, ny, nx, host offsets (K, 2) int32, K, centre, color,
-    # stream
+    # planes, x, b, out, ny, nx, host tap plan (K - 1, 8) int32, K - 1,
+    # centre, color, stream
     "mad_stencil2d_stored_halfsweep": (_P, _P, _P, _P, _I, _I, _P, _I, _I,
                                        ctypes.c_int, _STREAM),
     "mad_stencil2d_stored_residual": (_P, _P, _P, _P, _I, _I, _P, _I, _I,

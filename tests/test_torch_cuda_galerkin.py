@@ -5,16 +5,23 @@ Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_galerkin.py``
 runs them on a machine with a card.  The random operators carry nonzero
 coefficients on the offsets that leave the grid: the kernels must skip those
-terms as the plain versions' zero padding does.  Tolerances as in
-``tests/test_torch_cuda.py``: float64 1e-12 and float32 1e-5 of the largest
-reference value, bf16 one bf16 ulp of each value with the float32 floor.
+terms as the plain versions' zero padding does.  B12 and B13's stored form
+round every product and sum as their plain versions do and are held to
+their bytes (an integer comparison: signed zeros included), in every dtype,
+on the compiled layouts (19, 27, 117, 125 planes; 9 in 2D), pruned
+operators in their own order (the generic loop), widths that are whole
+4-cell vectors and widths that are not, shapes that are not whole tiles and
+runs of z planes longer and shorter than a block's.  B13's compressed form
+keeps the tolerances of ``tests/test_torch_cuda.py``: float64 1e-12 and
+float32 1e-5 of the largest reference value, bf16 one bf16 ulp of each
+value with the float32 floor.
 """
 
 import pytest
 import torch
 
 from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
-from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+from multigridanisotropicdiffusion_tpu_torch.core.grids import CELL, build_level_descriptors
 from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, stencil_offsets
 from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
 from multigridanisotropicdiffusion_tpu_torch.ops import (
@@ -23,12 +30,14 @@ from multigridanisotropicdiffusion_tpu_torch.ops import (
     cuda_stencil2d,
     cuda_stencil_stored,
     cuda_transfer,
+    galerkin,
     transfer,
 )
 
 pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float64, torch.float32, torch.bfloat16]
+INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
 COUNTERS = {
     "b1_halfsweep": cuda_smoothers.halfsweep,
     "b12_halfsweep": cuda_stencil_stored.halfsweep,
@@ -60,9 +69,33 @@ def _check(got, want):
         assert err.max().item() <= tol * scale
 
 
-def _random_op(shape, radius, gen, device, drop_corners=False):
+def _check_bits(got, want):
+    """The kernel's output is its plain version's bytes."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    ints = INTS[got.element_size()]
+    differ = int((got.contiguous().view(ints) != want.contiguous().view(ints)).sum())
+    assert differ == 0, f"{differ} of {got.numel()} values differ in their bits"
+
+
+def _layout(name):
+    """The offset tables the tests run: the solves' layouts, and a pruned
+    radius-2 table (every other outer offset dropped) in a shuffled order."""
+    if name in ("19", "27"):
+        return stencil_offsets(3, 1, drop_corners=name == "19")
+    if name == "117":  # level 1 of an exact hierarchy over the 19-point operator
+        return galerkin._structural_offsets((CELL,) * 3, stencil_offsets(3, 1), (2, 2, 2))
+    full = stencil_offsets(3, 2, drop_corners=False)
+    if name == "125":
+        return full
+    keep = [o for i, o in enumerate(full) if i % 2 == 0 or max(map(abs, o)) <= 1]
+    order = torch.randperm(len(keep), generator=torch.Generator().manual_seed(7))
+    return tuple(keep[i] for i in order.tolist())
+
+
+def _random_op(shape, radius, gen, device, drop_corners=False, offsets=None):
     """Random planes everywhere, borders included; a dominant diagonal."""
-    offsets = stencil_offsets(len(shape), radius, drop_corners=drop_corners)
+    if offsets is None:
+        offsets = stencil_offsets(len(shape), radius, drop_corners=drop_corners)
     coeffs = torch.randn((len(offsets), *shape), generator=gen, device=device,
                          dtype=torch.float64) * 0.05
     c = offsets.index((0,) * len(shape))
@@ -77,13 +110,16 @@ def _tensor(shape, gen, device):
     return torch.stack([(g[i] * g[j]).sum(0) + (2.0 if i == j else 0.0) for i, j in pairs])
 
 
-def _check_kernels(module, op, gen, dtype):
+def _check_kernels(module, op, gen, dtype, exact=False):
+    """Both half-sweeps and the residual against the plain versions: their
+    bytes with ``exact``, else within the tolerances."""
     op = op.astype(dtype)
     x = (torch.randn(op.shape, generator=gen, device="cuda", dtype=torch.float64) * 10).to(dtype)
     b = (torch.randn(op.shape, generator=gen, device="cuda", dtype=torch.float64) * 10).to(dtype)
+    cmp = _check_bits if exact else _check
     for color in (0, 1):
-        _check(module.halfsweep(op, x, b, color), module.halfsweep_plain(op, x, b, color))
-    _check(module.cuda_residual(op, x, b), module.residual_plain(op, x, b))
+        cmp(module.halfsweep(op, x, b, color), module.halfsweep_plain(op, x, b, color))
+    cmp(module.cuda_residual(op, x, b), module.residual_plain(op, x, b))
     torch.cuda.synchronize()
 
 
@@ -95,7 +131,58 @@ def _check_kernels(module, op, gen, dtype):
 def test_b12_random_operators_match_plain(device, dtype, radius, drop_corners, shape):
     gen = torch.Generator(device=device).manual_seed(radius + len(shape))
     _check_kernels(cuda_stencil_stored, _random_op(shape, radius, gen, device, drop_corners),
-                   gen, dtype)
+                   gen, dtype, exact=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("layout,shape", [
+    ("19", (9, 13, 36)), ("27", (7, 10, 260)), ("117", (5, 9, 130)), ("117", (5, 9, 132)),
+    ("125", (6, 11, 40)), ("pruned", (6, 12, 129)), ("pruned", (6, 12, 132)),
+    ("27", (131, 70, 260)), ("19", (2, 300, 4)),
+], ids=["19-vec", "27-vec-2-tiles", "117", "117-vec", "125-vec", "pruned", "pruned-vec",
+        "27-long-z", "19-tall"])
+def test_b12_layouts_and_shapes_match_plain_bitwise(device, dtype, layout, shape):
+    """The compiled tap counts on whole-vector widths, the generic loop
+    (pruned, and every width that is not whole vectors), shapes that are not
+    whole tiles (x past 128 columns, y past 8 rows, 131 planes in runs of 4
+    and a last run of 3)."""
+    gen = torch.Generator(device=device).manual_seed(len(_layout(layout)) + shape[0])
+    op = _random_op(shape, None, gen, device, offsets=_layout(layout))
+    _check_kernels(cuda_stencil_stored, op, gen, dtype, exact=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_b14_stored_on_galerkin_blocks_matches_plain(device, dtype):
+    """The shard-local form (B12's kernel) on the blocks of a collapsed
+    Galerkin level that a (2, 2, 1) mesh gives its ranks (odd and even
+    origins), against the plain versions' masking: ``torch.equal`` (the
+    plain version multiplies a masked 0 coefficient where the kernel
+    multiplies by a 0 halo, so an exact zero may differ in sign)."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    shape = (37, 41, 35)
+    t = _tensor(shape, gen, device).double()
+    hier = build_hierarchy(t, build_level_descriptors(shape), 0.1, "galerkin", "compressed",
+                           galerkin_variant="collapsed")
+    op = hier.operators[1].astype(dtype)
+    nz, ny, _ = op.shape
+    before = (cuda_stencil_stored.halfsweep_local.launches,
+              cuda_stencil_stored.cuda_residual_local.launches)
+    for zs in (slice(0, nz // 2), slice(nz // 2, nz)):
+        for ys in (slice(0, ny // 2 + 1), slice(ny // 2 + 1, ny)):
+            block = StencilOperator(op.coeffs[:, zs, ys].contiguous(), op.offsets)
+            x = (torch.randn(block.shape, generator=gen, device=device,
+                             dtype=torch.float64) * 10).to(dtype)
+            b = torch.randn(block.shape, generator=gen, device=device,
+                            dtype=torch.float64).to(dtype)
+            for color in (0, 1):
+                assert torch.equal(
+                    cuda_stencil_stored.halfsweep_local(block, x, b, color),
+                    cuda_stencil_stored.halfsweep_local_plain(block, x, b, color))
+            assert torch.equal(cuda_stencil_stored.cuda_residual_local(block, x, b),
+                               cuda_stencil_stored.residual_local_plain(block, x, b))
+    torch.cuda.synchronize()
+    assert (cuda_stencil_stored.halfsweep_local.launches - before[0],
+            cuda_stencil_stored.cuda_residual_local.launches - before[1]) == (8, 4)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -112,7 +199,7 @@ def test_b12_hierarchy_levels_match_plain(device, dtype, variant):
     hier = build_hierarchy(t, build_level_descriptors(shape), 0.1, **kw)
     for op in hier.operators:
         if isinstance(op, StencilOperator):
-            _check_kernels(cuda_stencil_stored, op, gen, dtype)
+            _check_kernels(cuda_stencil_stored, op, gen, dtype, exact=True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -132,7 +219,8 @@ def test_b13_matches_plain(device, dtype, shape):
            build_hierarchy(t, build_level_descriptors(shape), 0.1).operators[0],
            _random_op(shape, 1, gen, device)]
     for op in ops:
-        _check_kernels(cuda_stencil2d, op, gen, dtype)
+        _check_kernels(cuda_stencil2d, op, gen, dtype,
+                       exact=isinstance(op, StencilOperator))
 
 
 def test_wrappers_refuse_what_their_kernel_does_not_take(device):
@@ -154,6 +242,37 @@ def test_wrappers_refuse_what_their_kernel_does_not_take(device):
                                       x3, 0)
     with pytest.raises(ValueError):
         cuda_stencil2d.halfsweep(op2, x2, x2.cpu(), 0)
+
+
+def test_b12_b13_check_refuses_what_the_grid_does_not_take(device):
+    """Each refusal of the stored forms' ``_check``: more than 125 planes,
+    shapes that differ from the operator's, and more rows than one launch's
+    y grid takes (65535 blocks of 8 rows; 4 in float64)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    full = stencil_offsets(3, 2, drop_corners=False)
+    op126 = StencilOperator(torch.ones((126, 2, 3, 4), device=device), full + ((0, 0, 1),))
+    x3 = torch.zeros((2, 3, 4), device=device)
+    with pytest.raises(ValueError, match="exceed 125"):
+        cuda_stencil_stored.halfsweep(op126, x3, x3, 0)
+    op3 = _random_op((2, 3, 4), 1, gen, device).astype(torch.float32)
+    with pytest.raises(ValueError, match="!= operator"):
+        cuda_stencil_stored.cuda_residual(op3, x3[:, :2].contiguous(), x3[:, :2].contiguous())
+    for dtype, rows in ((torch.float32, 65535 * 8), (torch.float64, 65535 * 4)):
+        tall = StencilOperator(torch.ones((19, 1, rows + 1, 1), device=device, dtype=dtype),
+                               stencil_offsets(3, 1))
+        xt = torch.zeros(tall.shape, device=device, dtype=dtype)
+        with pytest.raises(ValueError, match="launch limit"):
+            cuda_stencil_stored.halfsweep(tall, xt, xt, 0)
+        with pytest.raises(ValueError, match="launch limit"):
+            cuda_stencil_stored.halfsweep_local(tall, xt, xt, 0)
+        tall2 = StencilOperator(tall.coeffs[:9, 0], stencil_offsets(2, 1))
+        with pytest.raises(ValueError, match="launch limit"):
+            cuda_stencil2d.cuda_residual(tall2, xt[0], xt[0])
+        # one row fewer fits: the kernels run
+        ok = StencilOperator(tall.coeffs[:9, 0, 1:].contiguous(), stencil_offsets(2, 1))
+        xo = torch.zeros(ok.shape, device=device, dtype=dtype)
+        _check_bits(cuda_stencil2d.cuda_residual(ok, xo, xo),
+                    cuda_stencil2d.residual_plain(ok, xo, xo))
 
 
 def test_2d_transfers_on_cuda_take_the_plain_versions(device):

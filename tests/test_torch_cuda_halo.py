@@ -6,7 +6,11 @@ Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 them on a machine with a card.  The planes are random and non-zero on every
 border, so the masking matters at every block face.  Tolerances as in
 ``tests/test_torch_cuda.py``: float64 1e-12 and float32 1e-5 of the largest
-reference value, bf16 one bf16 ulp of each value with the float32 floor.
+reference value, bf16 one bf16 ulp of each value with the float32 floor;
+the stored form (B12's kernel, which rounds as its plain version does) is
+held to it with ``torch.equal`` (values equal, the sign of an exact zero
+aside: the plain version masks a coefficient to 0 where the kernel
+multiplies by a zero halo).
 The two-rank tests: gloo ranks sharing cuda:0 (faces staged through the
 host), and NCCL ranks on two cards where there are two.
 """
@@ -90,10 +94,10 @@ def test_b14_stored_through_b12_matches_plain(device, shape, dtype):
     op = StencilOperator(planes.to(dtype), offsets)
     before = cuda_stencil_stored.halfsweep_local.launches
     for color in (0, 1):
-        _check(cuda_stencil_stored.halfsweep_local(op, x, b, color),
-               cuda_stencil_stored.halfsweep_local_plain(op, x, b, color))
-    _check(cuda_stencil_stored.cuda_residual_local(op, x, b),
-           cuda_stencil_stored.residual_local_plain(op, x, b))
+        assert torch.equal(cuda_stencil_stored.halfsweep_local(op, x, b, color),
+                           cuda_stencil_stored.halfsweep_local_plain(op, x, b, color))
+    assert torch.equal(cuda_stencil_stored.cuda_residual_local(op, x, b),
+                       cuda_stencil_stored.residual_local_plain(op, x, b))
     torch.cuda.synchronize()
     assert cuda_stencil_stored.halfsweep_local.launches - before == 2
 
