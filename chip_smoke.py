@@ -24,7 +24,9 @@ Phases, one line or more each; any failure exits non-zero:
    prolongation and replicate padding plus a stride-2 ``F.conv3d`` with the
    ``[1, 3, 3, 1] / 8`` product kernel for the restriction (each checked
    against the plain version in float32; cuDNN's TF32 off).  The
-   restriction is held bit for bit to its plain version (the single volume
+   stencil kernel B1/B2 is held to its plain versions' bytes at every level,
+   in float32, bfloat16 and (checked, not timed) float64; the
+   restriction bit for bit to its plain version (the single volume
    and the batch of six tensor planes), and the prolongation's add form
    ``x + P e`` bit for bit to ``x + cuda_prolong(e)``, timed beside those
    two launches;
@@ -93,7 +95,7 @@ timed), and a field of -0.0, which every pass must keep.
 Phase 3 also holds B14, the shard-local stencil kernel (compressed:
 ``halfsweep_local``/``cuda_residual_local`` on random planes non-zero on
 every border, one rank's (256, 512, 512) block of the 512^3 level and a
-(37, 45, 51) block; stored, through B12's kernel, on a (128, 256, 256) block
+(37, 45, 51) block, with ``torch.equal``; stored, through B12's kernel, on a (128, 256, 256) block
 of the 512^3 collapsed level 1), B10 (``conv_y``, ``conv_x``: 512^3 float32 and bfloat16,
 (37, 45, 51), and r = 64 on (12, 150, 150)) and B11 (``fd_hessian``: the
 valid-z smoothed 512^3 field of 514 planes, float32 and bfloat16, and
@@ -116,8 +118,8 @@ sigma 0.3's non-zero taps reach and whose library call is one
 ``F.conv3d``); the last line is ``{"ok": true, "device":
 {...}}``.
 
-Tolerances: B3 (the restriction), the prolongation's add form, B6 and B10
-bit for bit; otherwise float32 max |kernel - plain| <= 1e-5 max |plain| (the
+Tolerances: B1/B2, B3 (the restriction), the prolongation's add form, B6,
+B10, B12 and B13's stored form bit for bit, B14 with ``torch.equal``; otherwise float32 max |kernel - plain| <= 1e-5 max |plain| (the
 sums may run in another order); bfloat16 |kernel - plain| <= one bf16 ulp of each plain
 value (both compute in float32 and round once), with the float32 bound as a
 floor for values near zero, where cancellation makes the float32 sums
@@ -472,11 +474,11 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
     )
     from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
-    def timed(name, kernel, plain, library=None):
+    def timed(name, kernel, plain, library=None, compare=check):
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
-        errs[(name, tag)] = check(f"{name} {tag}", got, want)
+        errs[(name, tag)] = compare(f"{name} {tag}", got, want)
         if library is not None and want.dtype == torch.float32:
             check(f"{name} {tag} library form", library(), want)
         del got, want
@@ -492,15 +494,25 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
     op32 = compressed.assemble_compressed_dca(t, spacing, DT)
     x32 = torch.randn(shape, generator=gen, device="cuda") * 10.0
     b32 = torch.rand(shape, generator=gen, device="cuda") * 255.0
+    # B1/B2 round as their plain versions do: their bytes in every dtype
+    # (float64 checked, not timed: no solve stores it)
+    op, x, b = op32.astype(torch.float64), x32.double(), b32.double()
+    for color in (0, 1):
+        check_bits(f"stencil_halfsweep{color} f64 {tag}",
+                   cuda_smoothers.halfsweep(op, x, b, color),
+                   cuda_smoothers.halfsweep_plain(op, x, b, color))
+    check_bits(f"stencil_residual f64 {tag}", cuda_smoothers.cuda_residual(op, x, b),
+               cuda_smoothers.residual_plain(op, x, b))
+    del op, x, b
     for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         op, x, b = op32.astype(dtype), x32.to(dtype), b32.to(dtype)
         for color in (0, 1):
             timed(f"stencil_halfsweep{color} {suffix}",
                   lambda: cuda_smoothers.halfsweep(op, x, b, color),
-                  lambda: cuda_smoothers.halfsweep_plain(op, x, b, color))
+                  lambda: cuda_smoothers.halfsweep_plain(op, x, b, color), compare=check_bits)
         timed(f"stencil_residual {suffix}",
               lambda: cuda_smoothers.cuda_residual(op, x, b),
-              lambda: cuda_smoothers.residual_plain(op, x, b))
+              lambda: cuda_smoothers.residual_plain(op, x, b), compare=check_bits)
         if next_centering is not None:
             cent = next_centering
             e = transfer.restrict_plain(x, cent)
@@ -552,11 +564,11 @@ def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_run
     """B12 (``module`` = ``ops.cuda_stencil_stored``) or B13
     (``ops.cuda_stencil2d``) on one float32 operator: both half-sweeps and
     the residual in float32 and bfloat16 against the plain versions, a
-    stored operator's bit for bit (B12, B13 stored), a compressed
+    stored operator's bit for bit (B12, B13 stored), a 2D compressed
     operator's within the tolerances.  With ``local``, the shard-local form
     B14 (``halfsweep_local``, ``cuda_residual_local``; ``module`` =
-    ``ops.cuda_smoothers`` for the compressed operator), the stored form
-    held with ``torch.equal``.  With ``timed_runs``: CUDA-event medians and
+    ``ops.cuda_smoothers`` for the compressed operator), held with
+    ``torch.equal``.  With ``timed_runs``: CUDA-event medians and
     each call's work, (K + 3) values per cell and 2 K float operations."""
     import torch
 
@@ -580,7 +592,7 @@ def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_run
                       lambda: resid(op, x, b),
                       lambda: resid_plain(op, x, b)))
         stored = hasattr(op32, "offsets")
-        compare = (check if not stored else check_equal if local else check_bits)
+        compare = check_equal if local else check_bits if stored else check
         for name, kernel, plain in cases:
             got, want = kernel(), plain()
             torch.cuda.synchronize()

@@ -15,6 +15,15 @@ reaches across the block's border (:func:`mask_local_shells`), which the
 halo code then restores on the boundary slabs.  Their plain versions mask
 the planes, then run the plain half-sweep or residual.
 
+The kernel (``csrc/stencil_compressed.cu`` over ``csrc/stencil_tile.cuh``,
+the tile march B12 uses too) rounds every product, sum and the division on
+its own, in the plain versions' order, with x zero outside the grid: its
+outputs are the plain versions' bytes (the shard-local forms: their values).
+Its launch geometry is this module's (:func:`launch_geometry`): a block owns
+``TILE_Y[dtype]`` rows x ``TILE_X`` columns (the tile of
+:mod:`.cuda_stencil_stored`) and marches down a run of z planes, a lane
+owning 4 consecutive cells of a row.
+
 ``halfsweep.launches``, ``cuda_residual.launches``,
 ``halfsweep_local.launches`` and ``cuda_residual_local.launches`` count
 kernel launches.
@@ -22,12 +31,26 @@ kernel launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.stencil import compute_dtype
 from ..utils.build import check_launch, kernel, require_cuda, stream_of
 from .compressed import CompressedDCAOperator
+from .cuda_stencil_stored import TILE_X, TILE_Y, check_grid
 from .smoothers import gs_halfsweep
+
+#: blocks a launch aims at: short runs of planes make many blocks, so the
+#: last wave of blocks on the card's 132 SMs is a small share of the launch
+#: (a 512^3 bf16 half-sweep took 5% longer in 2048 blocks; PERF.md), and the
+#: coarse levels fill the card too
+TARGET_BLOCKS = 16384
+#: planes per block: at least MIN_RUN (the ring of 4 planes stages 2 more
+#: than a run computes), at most MAX_RUN
+MIN_RUN, MAX_RUN = 4, 64
+#: blocks a launch may have along z (along y: ``check_grid``)
+MAX_GRID_Z = 65535
 
 
 def halfsweep_plain(op: CompressedDCAOperator, x: torch.Tensor, b: torch.Tensor,
@@ -50,6 +73,22 @@ def rbgs_sweep_plain(op, x, b):
     return x
 
 
+@functools.lru_cache(maxsize=256)
+def launch_geometry(shape, dtype: torch.dtype) -> tuple[int, tuple[int, int, int]]:
+    """``(planes per block, grid)`` of a launch on a ``(Z, Y, X)`` field:
+    one block per ``TILE_Y[dtype]`` rows x ``TILE_X`` columns x run of z
+    planes, the runs as long as about ``TARGET_BLOCKS`` blocks in all make
+    them, within ``[MIN_RUN, MAX_RUN]`` (and at most ``Z``), and longer
+    where ``Z`` would need more than ``MAX_GRID_Z`` runs."""
+    nz, ny, nx = (int(n) for n in shape)
+    gx, gy = -(-nx // TILE_X), -(-ny // TILE_Y[dtype])
+    zrun = min(max(-(-nz * gx * gy // TARGET_BLOCKS), MIN_RUN), MAX_RUN)
+    if -(-nz // zrun) > MAX_GRID_Z:
+        zrun = -(-nz // MAX_GRID_Z)
+    zrun = max(min(zrun, nz), 1)
+    return zrun, (gx, gy, -(-nz // zrun))
+
+
 def _check(name: str, op, x: torch.Tensor, b: torch.Tensor) -> None:
     if not isinstance(op, CompressedDCAOperator) or op.ndim != 3:
         raise ValueError(f"{name}: needs a 3D CompressedDCAOperator, got {op!r}")
@@ -58,9 +97,17 @@ def _check(name: str, op, x: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(
             f"{name}: x {tuple(x.shape)} / b {tuple(b.shape)} != operator {op.shape}"
         )
-    nz, ny, _ = op.shape
-    if nz > 65535 or (ny + 7) // 8 > 65535:
-        raise ValueError(f"{name}: grid of {op.shape} exceeds the launch limits")
+    check_grid(name, op.shape, x.dtype)
+
+
+def _launch(entry: str, op, x, b, *color) -> torch.Tensor:
+    out = torch.empty_like(x)
+    err = kernel(entry, x.dtype)(
+        op.planes.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
+        *op.shape, launch_geometry(op.shape, x.dtype)[0], *color, stream_of(x),
+    )
+    check_launch(err, entry)
+    return out
 
 
 def halfsweep(op: CompressedDCAOperator, x: torch.Tensor, b: torch.Tensor,
@@ -70,12 +117,7 @@ def halfsweep(op: CompressedDCAOperator, x: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return halfsweep_plain(op, x, b, color)
     _check("halfsweep", op, x, b)
-    out = torch.empty_like(x)
-    err = kernel("mad_stencil_halfsweep", x.dtype)(
-        op.planes.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
-        *op.shape, int(color), stream_of(x),
-    )
-    check_launch(err, "halfsweep")
+    out = _launch("mad_stencil_halfsweep", op, x, b, int(color))
     halfsweep.launches += 1
     return out
 
@@ -97,12 +139,7 @@ def cuda_residual(op: CompressedDCAOperator, x: torch.Tensor,
     if x.device.type == "cpu":
         return residual_plain(op, x, b)
     _check("cuda_residual", op, x, b)
-    out = torch.empty_like(x)
-    err = kernel("mad_stencil_residual", x.dtype)(
-        op.planes.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
-        *op.shape, stream_of(x),
-    )
-    check_launch(err, "cuda_residual")
+    out = _launch("mad_stencil_residual", op, x, b)
     cuda_residual.launches += 1
     return out
 
@@ -164,12 +201,7 @@ def halfsweep_local(op: CompressedDCAOperator, x: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return halfsweep_local_plain(op, x, b, color)
     _check("halfsweep_local", op, x, b)
-    out = torch.empty_like(x)
-    err = kernel("mad_stencil_halfsweep_local", x.dtype)(
-        op.planes.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
-        *op.shape, int(color), stream_of(x),
-    )
-    check_launch(err, "halfsweep_local")
+    out = _launch("mad_stencil_halfsweep_local", op, x, b, int(color))
     halfsweep_local.launches += 1
     return out
 
@@ -183,12 +215,7 @@ def cuda_residual_local(op: CompressedDCAOperator, x: torch.Tensor,
     if x.device.type == "cpu":
         return residual_local_plain(op, x, b)
     _check("cuda_residual_local", op, x, b)
-    out = torch.empty_like(x)
-    err = kernel("mad_stencil_residual_local", x.dtype)(
-        op.planes.data_ptr(), x.data_ptr(), b.data_ptr(), out.data_ptr(),
-        *op.shape, stream_of(x),
-    )
-    check_launch(err, "cuda_residual_local")
+    out = _launch("mad_stencil_residual_local", op, x, b)
     cuda_residual_local.launches += 1
     return out
 

@@ -1,6 +1,6 @@
 """The stencil kernel on 3D stored operators: red-black Gauss-Seidel
-half-sweeps and the residual (``csrc/stencil_stored.cu``, the kernel in
-``csrc/stencil_stored.cuh``).
+half-sweeps and the residual (``csrc/stencil_stored.cu``, the contraction
+in ``csrc/stencil_stored.cuh``, the tile march in ``csrc/stencil_tile.cuh``).
 
 Counterpart of ``multigridanisotropicdiffusion_tpu.ops.pallas_smoothers``
 in its stored form (``_build_stencil_pass`` with ``offsets`` given): the
@@ -63,7 +63,8 @@ def rbgs_sweep_plain(op, x, b):
     return x
 
 
-#: the kernel's tile (``csrc/stencil_stored.cuh``): a block owns 128
+#: the kernel's tile (``csrc/stencil_tile.cuh``, the compressed operator's
+#: kernel's too, :mod:`.cuda_smoothers`): a block owns 128
 #: columns of ``TILE_Y[dtype]`` rows; a lane owns ``VEC`` consecutive cells;
 #: the staged x rows keep the column phases (column mod ``VEC``) apart,
 #: ``PHASE`` values each, ``ROW`` values a row, the tile's first column at

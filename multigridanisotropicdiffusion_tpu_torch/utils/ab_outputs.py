@@ -7,7 +7,8 @@
 time_step=0.1, tolerance=1e-6)`` on ``phantom.spd_tensor_field`` and b
 uniform in [0, 255), from seed 0 on the device, as ``chip_smoke.py``'s
 phase 5) and the VED 512^3 call (``VEDConfig.cuda()`` on the tube phantom
-from seed 1), and writes into DIR: the outputs (``mad.pt``, ``ved.pt``), the first outer
+from seed 1, and the same call with ``hessian_mode="gaussian_derivative"``),
+and writes into DIR: the outputs (``mad.pt``, ``ved.pt``, ``ved_gd.pt``), the first outer
 iteration's vesselness and tensor (``fused_vesselness_tensor`` on the input
 volume: ``first_resp.pt``, ``first_tensor.pt``), the same for the
 reference-faithful Hessian (``VEDConfig.cuda(hessian_mode=
@@ -17,7 +18,7 @@ the Galerkin solves of the MAD 512^3 inputs (``coarse_operator=
 the collapsed Galerkin 8192^2 solve (``spd_tensor_field`` and b from seed
 0, as ``chip_smoke.py``'s phase 8: ``gal2d_collapsed.pt``), and
 ``summary.json`` with each solve's cycles and relative residual history,
-the last VED solve's, and a SHA-256 of each saved tensor's bytes.
+each VED call's last solve's, and a SHA-256 of each saved tensor's bytes.
 ``compare`` prints, for two such directories, whether the cycle counts agree, the residual histories,
 whether each hash agrees and the relative L2 difference of each tensor, as
 one JSON line.  Two trees are compared by running ``run`` in each: copies
@@ -37,7 +38,8 @@ import torch
 
 SHAPE = (512, 512, 512)
 SOLVES = ("mad", "gal_collapsed", "gal_exact", "gal2d_collapsed")
-NAMES = SOLVES + ("ved", "first_resp", "first_tensor", "gd_first_resp", "gd_first_tensor")
+VEDS = ("ved", "ved_gd")
+NAMES = SOLVES + VEDS + ("first_resp", "first_tensor", "gd_first_resp", "gd_first_tensor")
 
 
 def _sha256(t: torch.Tensor) -> str:
@@ -85,13 +87,15 @@ def run(out_dir: str) -> dict:
             use_kernels=c.use_kernels)
         outs[f"{prefix}first_resp"], outs[f"{prefix}first_tensor"] = resp, tens
         del resp, tens
-    res = ved(vol, config=cfg, device="cuda")
-    d = res.diffusion
-    summary["ved_last_solve"] = {
-        "cycles": d.num_cycles.tolist(),
-        "history": [d.residual_history[s, :int(c)].tolist()
-                    for s, c in enumerate(d.num_cycles.tolist())]}
-    outs["ved"] = res.output
+    for key, c in zip(VEDS, (cfg, VEDConfig.cuda(hessian_mode="gaussian_derivative"))):
+        res = ved(vol, config=c, device="cuda")
+        d = res.diffusion
+        summary[f"{key}_last_solve"] = {
+            "cycles": d.num_cycles.tolist(),
+            "history": [d.residual_history[s, :int(n)].tolist()
+                        for s, n in enumerate(d.num_cycles.tolist())]}
+        outs[key] = res.output
+        del res, d
     torch.cuda.synchronize()
     summary["sha256"] = {k: _sha256(v) for k, v in outs.items()}
     for k, v in outs.items():
@@ -106,7 +110,7 @@ def compare(dir_a: str, dir_b: str) -> dict:
     for d in (dir_a, dir_b):
         with open(os.path.join(d, "summary.json")) as f:
             sums.append(json.load(f))
-    keys = SOLVES + ("ved_last_solve",)
+    keys = SOLVES + tuple(f"{k}_last_solve" for k in VEDS)
     row = {"same_cycles": {k: sums[0][k]["cycles"] == sums[1][k]["cycles"] for k in keys},
            "history": {k: [s[k]["history"] for s in sums] for k in keys},
            "same_hash": {k: sums[0]["sha256"][k] == sums[1]["sha256"][k] for k in NAMES},

@@ -1,8 +1,9 @@
 """Time the transfer kernels (B3, B4), the Gaussian z pass (B6), the fused
 y+x Gaussian (B7), the fused FD Hessian + vesselness + select (B8), the
 single-axis Gaussian-derivative passes (B10), the standalone FD Hessian
-(B11) and the stored-operator stencils (B12, B13's stored form) at the main
-path's shapes, on one CUDA card.
+(B11), the compressed-operator stencil (B1/B2, and B14's shard-local form)
+and the stored-operator stencils (B12, B13's stored form) at the main path's
+shapes, on one CUDA card.
 
     python -m multigridanisotropicdiffusion_tpu_torch.utils.bench_kernels \\
         [--check-only] [--only PREFIX ...]
@@ -36,6 +37,11 @@ Cases, float32 and bfloat16 storage, inputs made on the device from seed 0:
 * ``fill_``: a plain write of a 512^3 field, what the card's memory takes
   for the bytes the prolongation writes (a yardstick, not a kernel of the
   package);
+* ``compressed``: B1's half-sweeps (both colours) and B2's residual on the
+  10-plane compressed DCA operator at 512^3, 256^3 and 128^3 (the main
+  path's levels 0-2, each assembled from its own tensor field as
+  ``chip_smoke.py``'s phase 3 does); ``compressed_local``: one rank's (256,
+  512, 512) block of the 512^3 operator through the shard-local form (B14);
 * ``stored``: B12's half-sweeps (both colours) and residual on the 512^3
   19-plane stored DCA operator and, built from the same 512^3 tensor field
   as ``chip_smoke.py``'s phase 3 builds them, level 1 of the exact Galerkin
@@ -51,19 +57,20 @@ Each case is first held against its plain version (float32 within 1e-5 of
 max|plain|, bf16 within one bf16 ulp of each value, floored at that; B8's
 select: the response only, since a near-tie may flip a decision; the add
 form bit for bit ``x + cuda_prolong(e)``), and ``equal`` says whether the
-output is bit for bit the plain version's (B6, B10, B12 and B13's stored
-form must be: a case of theirs that is not fails, and is still timed; the
-shard-local form must be ``torch.equal``, the sign of an exact zero aside).
+output is bit for bit the plain version's (B1/B2, B6, B10, B12 and B13's
+stored form must be: a case of theirs that is not fails, and is still timed;
+the shard-local forms must be ``torch.equal``, the sign of an exact zero
+aside).
 ``sha256`` is a hash of the output's bytes (B8: the response, then the six
 planes), so that two trees' outputs can be compared. Then, unless
 ``--check-only``, the median of 20 CUDA-event timings of 10 back-to-back
 calls each (per call) after a warm-up (B8's select: one call per timing,
-after the restore; B12 and B13's stored form: the 10 calls replayed from a
-CUDA graph, so that the (1531, 997) cases, shorter than the wrappers' host
+after the restore; B1/B2, B12, B13's stored form and B14: the 10 calls
+replayed from a CUDA graph, so that the (1531, 997) cases, shorter than the wrappers' host
 time, are timed on the card), with the least time the card could take for
 the bytes moved (each input read once, each output written once, at 3.35
-TB/s; B6 reads only the planes that its non-zero taps reach; B12 and B13
-(K + 3) values per cell). Before the B8 cases, a line per VED scale gives the
+TB/s; B6 reads only the planes that its non-zero taps reach; the stencils
+(K + 3) values per cell, K = 10 for the compressed operator). Before the B8 cases, a line per VED scale gives the
 share of the 514-plane phantom field's voxels that are bright (the two
 largest-magnitude eigenvalues negative: the voxels whose vesselness is not
 0), counted from the plain eigenvalues. Prints the card's name and power
@@ -72,11 +79,12 @@ limit, one line per case, and a last line ``{"cases": [...]}``.  Exits 1 if a ch
 The script imports only what every version of the package since the
 stored-operator kernels has (``ops.cuda_transfer``, ``ops.cuda_conv``,
 ``ops.transfer``, ``ops.hessian``, ``ops.cuda_vesselness``,
-``ops.eigen3``, ``ops.cuda_stencil_stored``, ``ops.cuda_stencil2d``,
-``ops.dca``, ``ops.compressed``, ``ops.galerkin``, ``core``,
+``ops.eigen3``, ``ops.cuda_smoothers``, ``ops.cuda_stencil_stored``,
+``ops.cuda_stencil2d``, ``ops.dca``, ``ops.compressed``, ``ops.galerkin``, ``core``,
 ``models.ved``, ``utils.phantom``), so a copy of it in an older tree times
 that tree's kernels: two trees are compared in one call by running it in
-each, in turns (``--only stored --only 2d_stored``: B12 and B13 alone).
+each, in turns (``--only stored --only 2d_stored``: B12 and B13 alone;
+``--only compressed``: B1/B2 and B14).
 """
 
 from __future__ import annotations
@@ -384,12 +392,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     def stencil_cases(prefix, tag, module, op32, local=False):
-        """B12 (``module`` = ``ops.cuda_stencil_stored``; ``local``: its
-        shard-local form) or B13's stored form (``ops.cuda_stencil2d``) on
-        one float32 operator: both half-sweeps and the residual in float32
-        and bfloat16, bit for bit the plain versions (the local form: equal
+        """B1/B2 (``module`` = ``ops.cuda_smoothers``), B12
+        (``ops.cuda_stencil_stored``; ``local``: the shard-local form of
+        either, B14) or B13's stored form (``ops.cuda_stencil2d``) on one
+        float32 operator: both half-sweeps and the residual in float32 and
+        bfloat16, bit for bit the plain versions (the local forms: equal
         values, ``torch.equal``); (K + 3) values per cell."""
-        k = len(op32.offsets)
+        k = len(op32.offsets) if hasattr(op32, "offsets") else op32.planes.shape[0]
         gen_x = torch.Generator(device="cuda").manual_seed(k)
         x32 = torch.randn(op32.shape, generator=gen_x, device="cuda") * 10.0
         b32 = torch.rand(op32.shape, generator=gen_x, device="cuda") * 255.0
@@ -414,6 +423,26 @@ def main(argv=None) -> int:
         del x32, b32
         torch.cuda.empty_cache()
 
+    if wanted("compressed"):
+        # B1/B2 on the main path's first three levels, and B14 on one rank's
+        # block of the 512^3 level on a (2, 1, 1) mesh
+        from ..ops import compressed, cuda_smoothers
+        from .phantom import spd_tensor_field
+
+        for n in (512, 256, 128):
+            t = spd_tensor_field((n,) * 3, torch.Generator(device="cuda").manual_seed(0))
+            op = compressed.assemble_compressed_dca(t, (1.0,) * 3, 0.1)
+            del t
+            stencil_cases("compressed", f"{n}^3", cuda_smoothers, op)
+            if n == 512:
+                block = compressed.CompressedDCAOperator(op.planes[:, :256].contiguous(), 3)
+                del op
+                stencil_cases("compressed_local", "(256, 512, 512) block", cuda_smoothers,
+                              block, local=True)
+                del block
+            else:
+                del op
+            torch.cuda.empty_cache()
     if wanted("stored"):
         # B12 on the solves' stored operators, built as chip_smoke.py's phase 3
         # builds them from the 512^3 tensor field: the 19-plane stored DCA

@@ -54,13 +54,15 @@ _STREAM = _P
 
 #: argument types of each entry point, before the ``_<dtype>`` suffix
 SIGNATURES = {
-    # planes, x, b, out, nz, ny, nx, color, stream
-    "mad_stencil_halfsweep": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_int, _STREAM),
-    # planes, x, b, out, nz, ny, nx, stream
-    "mad_stencil_residual": (_P, _P, _P, _P, _I, _I, _I, _STREAM),
+    # planes, x, b, out, nz, ny, nx, planes per block
+    # (``ops.cuda_smoothers.launch_geometry``), color, stream
+    "mad_stencil_halfsweep": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int, _STREAM),
+    # planes, x, b, out, nz, ny, nx, planes per block, stream
+    "mad_stencil_residual": (_P, _P, _P, _P, _I, _I, _I, _I, _STREAM),
     # the shard-local forms (B14), same arguments
-    "mad_stencil_halfsweep_local": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_int, _STREAM),
-    "mad_stencil_residual_local": (_P, _P, _P, _P, _I, _I, _I, _STREAM),
+    "mad_stencil_halfsweep_local": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int,
+                                    _STREAM),
+    "mad_stencil_residual_local": (_P, _P, _P, _P, _I, _I, _I, _I, _STREAM),
     # in, out, batch, in dims (3), out dims (3), starts (3), weights (3), stream
     "mad_restrict3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
     "mad_prolong3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),

@@ -29,11 +29,9 @@ from .profile_ved import _device_us
 
 SHAPE = (512, 512, 512)
 GROUPS = {
-    "B14 shard-local stencil": ("stencil_kernel<float, false, true>",
-                                "stencil_kernel<float, true, true>",
-                                "stencil_kernel<__nv_bfloat16, false, true>",
-                                "stencil_kernel<__nv_bfloat16, true, true>"),
-    "B1/B2 whole-domain stencil": ("stencil_kernel",),
+    "B14 shard-local stencil": ("Compressed<float, true>",
+                                "Compressed<__nv_bfloat16, true>"),
+    "B1/B2 whole-domain stencil": ("Compressed<",),
     "B3/B4 3D transfers": ("restrict_kernel", "prolong_kernel"),
 }
 

@@ -32,11 +32,13 @@ CASES = (
     ("galerkin collapsed 512^3", (512, 512, 512), dict(coarse_operator="galerkin")),
     ("dca 8192^2", (8192, 8192), {}),
 )
-#: kernel-name fragments of each group
+#: kernel-name fragments of each group (the tile kernel's contraction names
+#: the stencil; the older trees' kernel names too, so that a copy of this
+#: script in such a tree groups alike)
 GROUPS = {
-    "B1/B2 compressed 3D stencil": ("stencil_kernel",),
-    "B12 stored 3D stencil": ("stored_kernel",),
-    "B13 2D stencil": ("compressed2d_kernel", "stored2d_kernel"),
+    "B1/B2 compressed 3D stencil": ("Compressed<", "stencil_kernel"),
+    "B12 stored 3D stencil (and B13's stored form)": ("Taps<", "stored_kernel"),
+    "B13 2D compressed stencil": ("compressed2d_kernel",),
     "B3/B4 3D transfers": ("restrict_kernel", "prolong_kernel"),
 }
 

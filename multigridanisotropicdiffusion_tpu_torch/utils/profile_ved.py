@@ -30,7 +30,7 @@ CONV_PREFIX = "conv_"
 GROUPS = {
     "pipeline kernels (B6-B11)": (CONV_PREFIX, "fd_vesselness_kernel",
                                   "tensor_assembly_kernel", "fd_hessian_kernel"),
-    "solve (B1-B5)": ("stencil_kernel", "restrict_kernel", "prolong_kernel",
+    "solve (B1-B5)": ("Compressed<", "stencil_kernel", "restrict_kernel", "prolong_kernel",
                       "assemble_kernel"),
 }
 

@@ -4,11 +4,15 @@ Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 ``python -m pytest -m cuda tests/test_torch_cuda.py`` runs them on a machine
 with a card.  They mirror the kernel phase of ``chip_smoke.py`` at the
 (69, 77, 69) hierarchy's levels (vertex centring) and a small all-cell
-pair.  Tolerances: float64 1e-12 and float32 1e-5 of the largest reference
-value (the kernels sum in another order than the plain versions); bf16 one
-bf16 ulp of each reference value (both compute in float32 and round once),
-with the float32 floor for values near zero.  The restriction rounds as its
-plain version does and is held to ``torch.equal``.
+pair.  The stencil kernels (B1/B2) and the restriction round as their
+plain versions do: the half-sweeps and the residual are held to the plain
+versions' bytes in every dtype, also on ragged shapes (rows that are not
+whole 4-cell vectors, fewer rows than a tile, one or two planes), the
+restriction to ``torch.equal``.  Tolerances elsewhere: float64 1e-12 and
+float32 1e-5 of the largest reference value (the kernels sum in another
+order than the plain versions); bf16 one bf16 ulp of each reference value
+(both compute in float32 and round once), with the float32 floor for values
+near zero.
 """
 
 import itertools
@@ -20,12 +24,19 @@ from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
 from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
 from multigridanisotropicdiffusion_tpu_torch.ops import cuda_assemble, cuda_smoothers
 from multigridanisotropicdiffusion_tpu_torch.ops import cuda_transfer, transfer
-from multigridanisotropicdiffusion_tpu_torch.ops.compressed import assemble_compressed_dca
+from multigridanisotropicdiffusion_tpu_torch.ops.compressed import (
+    CompressedDCAOperator,
+    assemble_compressed_dca,
+)
 
 pytestmark = pytest.mark.cuda
 
 LEVELS = build_level_descriptors((69, 77, 69)) + build_level_descriptors((32, 32, 32))
 DTYPES = [torch.float64, torch.float32, torch.bfloat16]
+#: shapes that are not whole tiles: X not a multiple of 4, X < 128, Y below
+#: a tile's rows, Z = 1 and 2
+RAGGED = [(1, 5, 3), (2, 9, 130), (3, 7, 127), (5, 17, 4), (2, 3, 133), (9, 10, 64)]
+INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
 COUNTERS = (cuda_smoothers.halfsweep, cuda_smoothers.cuda_residual,
             cuda_transfer.cuda_restrict, cuda_transfer.cuda_prolong,
             cuda_assemble.cuda_assemble_compressed_dca)
@@ -52,6 +63,14 @@ def _check(got, want):
         assert err.max().item() <= tol * scale
 
 
+def _check_bits(got, want):
+    """The kernel's output is the plain version's bytes (signed zeros
+    included)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    ints = INTS[got.element_size()]
+    assert torch.equal(got.contiguous().view(ints), want.contiguous().view(ints))
+
+
 def _tensor(shape, device, gen):
     g = torch.randn((3, 3, *shape), generator=gen, device=device)
     pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
@@ -75,10 +94,10 @@ def test_kernels_match_plain(device, level, dtype):
     x = torch.randn(lvl.shape, generator=gen, device=device).to(dtype) * 10
     b = torch.randn(lvl.shape, generator=gen, device=device).to(dtype) * 10
     for color in (0, 1):
-        _check(cuda_smoothers.halfsweep(op, x, b, color),
-               cuda_smoothers.halfsweep_plain(op, x, b, color))
-    _check(cuda_smoothers.cuda_residual(op, x, b),
-           cuda_smoothers.residual_plain(op, x, b))
+        _check_bits(cuda_smoothers.halfsweep(op, x, b, color),
+                    cuda_smoothers.halfsweep_plain(op, x, b, color))
+    _check_bits(cuda_smoothers.cuda_residual(op, x, b),
+                cuda_smoothers.residual_plain(op, x, b))
     if level + 1 < len(LEVELS) and LEVELS[level + 1].index == lvl.index + 1:
         cent = LEVELS[level + 1].centering
         assert torch.equal(cuda_transfer.cuda_restrict(x, cent),
@@ -89,6 +108,34 @@ def test_kernels_match_plain(device, level, dtype):
         e = transfer.restrict_plain(x, cent)
         _check(cuda_transfer.cuda_prolong(e, cent), transfer.prolong_plain(e, cent))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", RAGGED, ids=str)
+def test_stencil_ragged_shapes_bit_for_bit(device, shape, dtype):
+    """B1/B2 on shapes that are not whole tiles, on random planes non-zero
+    on every border (the zero-staged ring, not the operator's folding, keeps
+    the border terms), and with an ``x`` that is not 16-byte aligned (the
+    scalar loads): the plain versions' bytes, one launch each."""
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    planes = torch.randn((10, *shape), generator=gen, device=device, dtype=torch.float64)
+    planes[-1] = 8.0 + planes[-1].abs()
+    op = CompressedDCAOperator(planes.to(dtype), 3)
+    x = (torch.randn(shape, generator=gen, device=device, dtype=torch.float64) * 10).to(dtype)
+    b = (torch.randn(shape, generator=gen, device=device, dtype=torch.float64) * 10).to(dtype)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+    shifted = flat[1:].view(shape)
+    shifted.copy_(x)
+    before = (cuda_smoothers.halfsweep.launches, cuda_smoothers.cuda_residual.launches)
+    for xin in (x, shifted):
+        for color in (0, 1):
+            _check_bits(cuda_smoothers.halfsweep(op, xin, b, color),
+                        cuda_smoothers.halfsweep_plain(op, x, b, color))
+        _check_bits(cuda_smoothers.cuda_residual(op, xin, b),
+                    cuda_smoothers.residual_plain(op, x, b))
+    torch.cuda.synchronize()
+    assert (cuda_smoothers.halfsweep.launches - before[0],
+            cuda_smoothers.cuda_residual.launches - before[1]) == (4, 2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

@@ -4,13 +4,14 @@ the distributed kernel path with two ranks on the card.
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_halo.py`` runs
 them on a machine with a card.  The planes are random and non-zero on every
-border, so the masking matters at every block face.  Tolerances as in
-``tests/test_torch_cuda.py``: float64 1e-12 and float32 1e-5 of the largest
-reference value, bf16 one bf16 ulp of each value with the float32 floor;
-the stored form (B12's kernel, which rounds as its plain version does) is
-held to it with ``torch.equal`` (values equal, the sign of an exact zero
-aside: the plain version masks a coefficient to 0 where the kernel
-multiplies by a zero halo).
+border, so the masking matters at every block face.  Both forms round as
+their plain versions do and are held to them with ``torch.equal`` (values
+equal, the sign of an exact zero aside: the stored form's plain version
+masks a coefficient to 0 where the kernel multiplies by a zero halo), the
+compressed form also on shapes that are not whole tiles.  Tolerances
+elsewhere as in ``tests/test_torch_cuda.py``: float64 1e-12 and float32
+1e-5 of the largest reference value, bf16 one bf16 ulp of each value with
+the float32 floor.
 The two-rank tests: gloo ranks sharing cuda:0 (faces staged through the
 host), and NCCL ranks on two cards where there are two.
 """
@@ -35,6 +36,9 @@ pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float64, torch.float32, torch.bfloat16]
 SHAPES = [(37, 45, 51), (16, 24, 16), (1, 5, 3)]
+#: more shapes that are not whole tiles (X not a multiple of 4, X < 128, Y
+#: below a tile's rows, Z = 2)
+RAGGED = [(2, 9, 130), (3, 7, 127), (5, 17, 4), (2, 3, 133)]
 
 
 @pytest.fixture
@@ -68,17 +72,17 @@ def _inputs(shape, device, dtype, k):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + RAGGED)
 def test_b14_compressed_matches_plain(device, shape, dtype):
     planes, x, b = _inputs(shape, device, dtype, 10)
     planes[-1] = 8.0 + planes[-1].abs()
     op = CompressedDCAOperator(planes.to(dtype), 3)
     before = (cuda_smoothers.halfsweep_local.launches, cuda_smoothers.cuda_residual_local.launches)
     for color in (0, 1):
-        _check(cuda_smoothers.halfsweep_local(op, x, b, color),
-               cuda_smoothers.halfsweep_local_plain(op, x, b, color))
-    _check(cuda_smoothers.cuda_residual_local(op, x, b),
-           cuda_smoothers.residual_local_plain(op, x, b))
+        assert torch.equal(cuda_smoothers.halfsweep_local(op, x, b, color),
+                           cuda_smoothers.halfsweep_local_plain(op, x, b, color))
+    assert torch.equal(cuda_smoothers.cuda_residual_local(op, x, b),
+                       cuda_smoothers.residual_local_plain(op, x, b))
     torch.cuda.synchronize()
     assert (cuda_smoothers.halfsweep_local.launches - before[0],
             cuda_smoothers.cuda_residual_local.launches - before[1]) == (2, 1)
