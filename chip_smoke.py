@@ -74,7 +74,10 @@ Phases, one line or more each; any failure exits non-zero:
    measure correctness and overheads, not NVLink scaling).  On 2 ranks, mesh
    (2, 1, 1): one B14 red-black sweep and residual on the 512^3 compressed
    operator against B1/B2 on the whole volume (1e-5 of max|ref|); phase 5's
-   512^3 ``mad_diffusion`` with ``MADConfig.cuda()``; phase 6's 512^3
+   construction at 256^3 with ``use_kernels=False`` in both halo modes
+   (``'shard_map'`` and ``'overlap'``), whose outputs must be
+   ``torch.equal``, both warm times printed; phase 5's 512^3
+   ``mad_diffusion`` with ``MADConfig.cuda()``; phase 6's 512^3
    ``ved(VEDConfig.cuda())``.  On 8 ranks, mesh (2, 2, 2): the (254, 256,
    256) solve (every axis split, odd-origin blocks, a padded level 1), with
    the compressed DCA operator and with collapsed Galerkin levels (B14's
@@ -1731,8 +1734,52 @@ def dist_ved(mesh):
     return out
 
 
+def dist_halo_modes(mesh):
+    """Phase 5's construction at 256^3 with ``use_kernels=False`` in both
+    halo modes (``'shard_map'``: exchange, then contract; ``'overlap'``: the
+    zero-halo contraction beside the exchange, then the slabs): rank 0
+    holds the two gathered outputs ``torch.equal`` and against the
+    single-device plain solve."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch import MADConfig, gather_field, mad_diffusion
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+    from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
+    from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
+
+    shape = (256, 256, 256)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tensor = spd_tensor_field(shape, gen)
+    b = torch.rand(shape, generator=gen, device="cuda") * 255.0
+    out, fulls = {"case": "halo modes 256^3", "b14_launches": {}}, {}
+    for halo in ("shard_map", "overlap"):
+        cfg = MADConfig.cuda(time_step=DT, tolerance=1e-6, max_cycles=50, use_kernels=False,
+                             halo=halo)
+        hier = build_hierarchy(as_sym_planes(tensor, shape, dtype=b.dtype, device="cuda"),
+                               build_level_descriptors(shape), cfg.time_step,
+                               cfg.coarse_operator, cfg.operator_repr, cfg.use_kernels)
+        res, run = _dist_solve_run(
+            mesh, lambda: mad_diffusion(b, tensor, config=cfg, mesh=mesh),
+            lambda: mad_diffusion(b, tensor, config=cfg, mesh=mesh, hierarchy=hier))
+        del hier
+        out[halo] = dict(first_s=run["first_s"], warm_s=run["warm_s"],
+                         cycles=int(res.num_cycles[0]), relres=float(res.final_residual[0]))
+        fulls[halo] = gather_field(res.output, mesh)
+    if mesh.rank == 0:
+        ref = mad_diffusion(b, tensor, config=cfg, device="cuda")
+        full = fulls["overlap"]
+        out["equal"] = torch.equal(fulls["shard_map"], full)
+        out["rel_l2_vs_single"] = ((full.double() - ref.output.double()).norm()
+                                   / ref.output.double().norm()).item()
+        out["cycles_single"] = int(ref.num_cycles[0])
+        out["finite"] = bool(torch.isfinite(full).all()) and tuple(full.shape) == shape
+    return out
+
+
 DIST_CASES = {
     "sweep 512^3": dist_sweep,
+    "halo modes 256^3": dist_halo_modes,
     "dca 512^3": lambda mesh: dist_mad(mesh, SHAPE, "dca 512^3"),
     "ved 512^3": dist_ved,
     "dca (254, 256, 256)": lambda mesh: dist_mad(mesh, DIST_SHAPE_8, "dca (254, 256, 256)"),
@@ -1801,6 +1848,33 @@ def run_dist(world, mesh_shape, cases):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+def halo_modes_report(case, rows, world, mesh_shape):
+    """Phase 11's two halo modes: the same bits, each step at relres <=
+    1e-6, the same cycles as each other and within one of one device."""
+    head = rows[0]
+    for r, row in enumerate(rows):
+        log(f"  {case} rank {r}: warm shard_map {row['shard_map']['warm_s']:.3f} s, overlap "
+            f"{row['overlap']['warm_s']:.3f} s (first calls {row['shard_map']['first_s']:.3f} "
+            f"/ {row['overlap']['first_s']:.3f} s)")
+    modes = [head["shard_map"], head["overlap"]]
+    relres = [f"{m['relres']:.3e}" for m in modes]
+    log(f"  {case} (use_kernels=False): outputs torch.equal across the modes: "
+        f"{head['equal']}; cycles {[m['cycles'] for m in modes]} (single device "
+        f"{head['cycles_single']}), relres {relres}, rel_l2 to the single-device plain run "
+        f"{head['rel_l2_vs_single']:.3e} (bound 1e-4)")
+    if not (head["equal"] and head["finite"] and head["rel_l2_vs_single"] <= 1e-4
+            and all(m["relres"] <= 1e-6 for m in modes)
+            and modes[0]["cycles"] == modes[1]["cycles"]
+            and abs(modes[1]["cycles"] - head["cycles_single"]) <= 1):
+        fail(f"{case}: the two halo modes disagree or are off")
+    return dict(case=f"distributed {case}", ranks=world, mesh=list(mesh_shape),
+                cycles=[m["cycles"] for m in modes], relres=[m["relres"] for m in modes],
+                equal=head["equal"], rel_l2_vs_single=head["rel_l2_vs_single"],
+                warm_s={k: [row[k]["warm_s"] for row in rows] for k in ("shard_map", "overlap")},
+                first_s={k: [row[k]["first_s"] for row in rows]
+                         for k in ("shard_map", "overlap")})
+
+
 def phase_distributed():
     """The distributed main path on one card: gloo ranks sharing cuda:0 (the
     faces staged through the host), so these numbers measure the port's
@@ -1812,7 +1886,7 @@ def phase_distributed():
     torch.cuda.empty_cache()
     summary, launches = [], {}
     for world, mesh_shape, cases in (
-            (2, (2, 1, 1), ("sweep 512^3", "dca 512^3", "ved 512^3")),
+            (2, (2, 1, 1), ("sweep 512^3", "halo modes 256^3", "dca 512^3", "ved 512^3")),
             (8, (2, 2, 2), ("dca (254, 256, 256)", "galerkin collapsed (254, 256, 256)"))):
         t0 = time.perf_counter()
         reports = run_dist(world, mesh_shape, cases)
@@ -1821,6 +1895,9 @@ def phase_distributed():
         for case in cases:
             rows = [rep[case] for rep in reports]
             head = rows[0]
+            if case.startswith("halo modes"):
+                summary.append(halo_modes_report(case, rows, world, mesh_shape))
+                continue
             for r, row in enumerate(rows):
                 if not all(row["b14_launches"].get(k) for k in LOCAL_KERNELS[:2]) and \
                         not all(row["b14_launches"].get(k) for k in LOCAL_KERNELS[2:]):

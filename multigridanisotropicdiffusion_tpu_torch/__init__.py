@@ -61,6 +61,8 @@ from .parallel.sharding import (
     shard_field,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "CELL", "DCA", "DEFAULT_MIN_LOCAL", "FMG", "GALERKIN", "SMOOTHER", "VCYCLE",
     "VERTEX", "GridLevel", "GridMesh", "Hierarchy", "MADConfig", "MADResult",

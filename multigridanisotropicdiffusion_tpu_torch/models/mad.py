@@ -30,10 +30,13 @@ Differences from the JAX package:
   :class:`~..parallel.sharding.GridMesh` receives the whole input, builds
   the whole hierarchy (the setup runs replicated, as in the JAX package),
   keeps its blocks, and solves on them with explicit halo exchanges
-  (``halo='shard_map'`` or ``'overlap'``, one path; XLA's ``'gspmd'`` has
-  no counterpart), block transfers between levels, a replicated coarsest solve
-  and global norms that every rank computes alike.  With ``use_kernels``
-  the 3D radius-1 levels run the shard-local kernel B14.  Each rank returns
+  (``halo='shard_map'``: exchange, then contract; ``'overlap'``: contract
+  against zero halos while the faces move, then splice the boundary slabs;
+  the same bits either way; XLA's ``'gspmd'`` has no counterpart), block
+  transfers between levels, a replicated coarsest solve and global norms
+  that every rank computes alike.  With ``use_kernels`` the 3D radius-1
+  levels run the shard-local kernel B14, overlapped with the exchange in
+  both modes.  Each rank returns
   its block of the output (:func:`..parallel.sharding.output_range`);
   :func:`..parallel.sharding.gather_field` assembles the whole volume.
 """
@@ -107,10 +110,13 @@ class MADConfig:
     #: the counterpart of the JAX package's use_pallas plus its TPU-backend
     #: gates on assembly and transfers.
     use_kernels: bool = False
-    #: distribution strategy with a mesh (ignored without): 'shard_map' or
-    #: 'overlap', the JAX package's names; both exchange the halos, then
-    #: contract (parallel.halo says why there is one path).  Both need a
-    #: stored or compressed operator and a GS/Jacobi/Chebyshev smoother.
+    #: distribution strategy with a mesh (ignored without), the JAX
+    #: package's names: 'shard_map' exchanges the halos, then contracts;
+    #: 'overlap' contracts against zero halos while the faces move (a side
+    #: CUDA stream) and then recomputes the boundary slabs; the two give the
+    #: same bits (parallel.halo).  The kernel path (use_kernels) is
+    #: overlapped in both.  Both need a stored or compressed operator and a
+    #: GS/Jacobi/Chebyshev smoother.
     halo: str = "overlap"
     #: print the per-cycle relative-residual trace after the solve.
     verbose: bool = False
@@ -511,30 +517,32 @@ def _level_layouts(mesh, levels: Tuple[GridLevel, ...], min_local: int):
 
 def _make_halo_ops(mesh, layouts, config: MADConfig):
     """Per-level halo-exchange smoothers and residuals on the blocks
-    (parallel.halo): with ``use_kernels`` the 3D radius-1 levels run B14
-    (the compressed operator and stored radius-1 levels), the others the
-    plain halo path, as the JAX package runs XLA for them."""
+    (parallel.halo), overlapped when ``config.halo == 'overlap'``: with
+    ``use_kernels`` the 3D radius-1 levels run B14 (the compressed operator
+    and stored radius-1 levels; always overlapped), the others the plain
+    halo path, as the JAX package runs XLA for them."""
     from ..parallel import halo as H
 
     if config.operator_repr == "matrix_free":
         raise ValueError("a mesh needs operator_repr='stored' or 'compressed' (the "
                          "matrix-free operator has no planes to exchange halos for)")
+    overlap = config.halo == "overlap"
     smooths, resids = [], []
     for lay in layouts:
         spec = lay.spec
         if config.smoother in ("gauss_seidel", "gs", "rbgs"):
             sm = (H.make_halo_kernel_rbgs_sweep(mesh, spec) if config.use_kernels
-                  else H.make_halo_rbgs_sweep(mesh, spec))
+                  else H.make_halo_rbgs_sweep(mesh, spec, overlap))
         elif config.smoother in ("weighted_jacobi", "wj", "jacobi"):
-            sm = H.make_halo_jacobi_sweep(mesh, spec, config.jacobi_weight)
+            sm = H.make_halo_jacobi_sweep(mesh, spec, config.jacobi_weight, overlap)
         elif config.smoother in ("chebyshev", "cheby"):
-            sm = H.make_halo_chebyshev_smoother(mesh, spec)
+            sm = H.make_halo_chebyshev_smoother(mesh, spec, overlap=overlap)
         else:
             raise ValueError("a mesh supports the gauss_seidel, weighted_jacobi and "
                              f"chebyshev smoothers (got {config.smoother!r})")
         smooths.append(sm)
         resids.append(H.make_halo_kernel_residual(mesh, spec) if config.use_kernels
-                      else H.make_halo_residual(mesh, spec))
+                      else H.make_halo_residual(mesh, spec, overlap))
     return tuple(smooths), tuple(resids)
 
 

@@ -9,24 +9,33 @@ are zero, the contract of the boundary-folded operators.  Red-black parity
 comes from *global* coordinates, so the colouring does not depend on the
 partition.  Every split dimension must divide evenly (see :mod:`.padding`).
 
-There is one path: exchange, then contract.  The JAX package's
-``overlap=True`` contracts against zero halos while the exchange is in
-flight and then recomputes the boundary slabs; here the exchange holds the
-host (under gloo the faces' copies to the host wait for the stream, and
-NCCL's point-to-point operations wait for it too), so that split would
-overlap nothing and only add the slab recompute.  ``MADConfig.halo``
-accepts both names, and both take this path.
+Two schedules, the JAX package's two modes (``MADConfig.halo``):
+
+* ``overlap=False`` (``'shard_map'``): exchange, then contract over the
+  padded block (:func:`exchange_halos`).
+* ``overlap=True`` (``'overlap'``): contract against *zero* halos first,
+  with no dependency on the exchange, then exchange the faces
+  (:func:`.sharding.exchange_halo_shell`: on a side CUDA stream that waits
+  only for the block, so the contraction already queued runs during it) and
+  recompute just the radius-thick boundary slabs of the split dimensions
+  from a slab-local padded piece, spliced in.  Away from those slabs the
+  zero halos change nothing (the global borders' folded coefficients are
+  zero), and the slabs are recomputed whole, term for term, so both
+  schedules give the same bits.
 
 The kernel path (:func:`make_halo_kernel_rbgs_sweep`,
 :func:`make_halo_kernel_residual`, the JAX package's
-``make_halo_pallas_*``) runs the shard-local kernel B14 on each 3D block of a
-radius-1 operator (``ops.cuda_smoothers.halfsweep_local`` for the compressed
-operator, ``ops.cuda_stencil_stored.halfsweep_local`` for a stored one): it
-drops every term that crosses the block's border, the boundary slabs are
-then recomputed here in plain PyTorch from the exchanged halos
+``make_halo_pallas_*``) is overlapped in both modes, as the JAX package's
+Pallas path is: the shard-local kernel B14 runs on each 3D block of a
+radius-1 operator (``ops.cuda_smoothers.halfsweep_local`` for the
+compressed operator, ``ops.cuda_stencil_stored.halfsweep_local`` for a
+stored one), dropping every term that crosses the block's border, while
+the faces move; the 1-voxel boundary slabs are then recomputed in plain
+PyTorch from slab-local pieces of the exchanged shell
 (:func:`_halfsweep_slab_fix`), and the colour is flipped on blocks whose
-global origin is odd (the kernel's parity is the local index sum).  On a CPU
-tensor the wrappers take their plain versions.
+global origin is odd (the kernel's parity is the local index sum).  It
+builds no padded copy of the block.  On a CPU tensor the wrappers take
+their plain versions and the exchange runs in program order.
 
 Arithmetic follows the port's rule: 16-bit storage computes in float32 and
 rounds once per half-sweep, Jacobi sweep, Chebyshev call or residual.
@@ -42,7 +51,15 @@ import torch.distributed as dist
 from ..core.stencil import StencilOperator, compute_dtype
 from ..ops.compressed import CompressedDCAOperator
 from ..ops.smoothers import CHEBYSHEV_DEGREE, CHEBYSHEV_EIG_RATIO, DEFAULT_JACOBI_WEIGHT, parity_mask
-from .sharding import GridMesh, Spec, exchange_faces, sharded_dims, _staged
+from .sharding import (
+    GridMesh,
+    Spec,
+    _staged,
+    exchange_faces,
+    exchange_halo_shell,
+    ready_event,
+    sharded_dims,
+)
 
 
 def _offdiag_terms(op):
@@ -134,35 +151,76 @@ def _local_offdiag(op, x_pad: torch.Tensor, radii: Tuple[int, ...]) -> torch.Ten
     return out
 
 
-def _slab_slice(shape, d: int, lo: bool):
-    """Index of the 1-voxel boundary slab of dimension d, and its start."""
-    pos = 0 if lo else shape[d] - 1
-    return tuple(slice(pos, pos + 1) if dd == d else slice(None)
+def _slab_slice(shape, d: int, lo: bool, t: int = 1):
+    """Index of the ``t``-thick boundary slab of dimension d, and its
+    start."""
+    pos = 0 if lo else shape[d] - t
+    return tuple(slice(pos, pos + t) if dd == d else slice(None)
                  for dd in range(len(shape))), pos
 
 
-def _local_offdiag_slab(op, x_pad: torch.Tensor, d: int, lo: bool) -> torch.Tensor:
-    """Off-diagonal contraction of the 1-voxel boundary slab of dimension d
-    of a radius-1 operator, read from the block padded by one halo voxel:
-    the complete value there, the corner terms through other dimensions'
-    halos included."""
+def _slab_box(shape, radii, d: int, lo: bool):
+    """The piece of the padded block that the ``radii[d]``-thick boundary
+    slab of dimension d reads (the slab plus a halo's thickness on each side
+    along d, the whole padded extent elsewhere), and its start along d."""
+    t = radii[d]
+    pos = 0 if lo else shape[d] - t
+    box = tuple((pos, pos + t + 2 * r) if dd == d else (0, n + 2 * r)
+                for dd, (n, r) in enumerate(zip(shape, radii)))
+    return box, pos
+
+
+def _local_offdiag_slab(op, x_pad: torch.Tensor, d: int, lo: bool,
+                        radii: Tuple[int, ...], start: int) -> torch.Tensor:
+    """Off-diagonal contraction of the ``radii[d]``-thick boundary slab of
+    dimension d, read from the halo-padded block whose dimension d starts at
+    padded row ``start`` (a :func:`_slab_box` piece starts at the slab's
+    own start): the complete value there, the corner terms through other
+    dimensions' halos included."""
     shape = op.shape
-    coeff_sl, pos = _slab_slice(shape, d, lo)
+    t = radii[d]
+    coeff_sl, pos = _slab_slice(shape, d, lo, t)
     cd = compute_dtype(x_pad.dtype)
     out = None
     for off, plane, sign in _offdiag_terms(op):
-        sl = tuple(slice(1 + pos + o, 2 + pos + o) if dd == d else slice(1 + o, 1 + o + s)
-                   for dd, (o, s) in enumerate(zip(off, shape)))
+        sl = tuple(slice(r + pos + o - start, r + pos + t + o - start) if dd == d
+                   else slice(r + o, r + o + s)
+                   for dd, (o, s, r) in enumerate(zip(off, shape, radii)))
         term = sign * plane[coeff_sl].to(cd) * x_pad[sl].to(cd)
         out = term if out is None else out + term
     return out
 
 
-def _offdiag_exchange(op, x: torch.Tensor, mesh: GridMesh, spec: Spec) -> torch.Tensor:
+def _slabs(op, region, mesh: GridMesh, spec: Spec, radii: Tuple[int, ...]):
+    """Per boundary slab of every split dimension: its index and start in
+    the block, and its off-diagonal contraction read from ``region(box)``
+    (that box of the padded block)."""
+    shape = tuple(op.shape)
+    for d in sharded_dims(mesh, spec):
+        for lo in (True, False):
+            box, start = _slab_box(shape, radii, d, lo)
+            sl, pos = _slab_slice(shape, d, lo, radii[d])
+            yield sl, pos, _local_offdiag_slab(op, region(box), d, lo, radii, start)
+
+
+def _offdiag_exchange(op, x: torch.Tensor, mesh: GridMesh, spec: Spec,
+                      overlap: bool = False) -> torch.Tensor:
     """Off-diagonal contraction of the local block with the true neighbour
-    halos: exchange, then one contraction over the padded block."""
+    halos.  ``overlap=False``: exchange, then one contraction over the
+    padded block.  ``overlap=True``: contract against zero halos at once,
+    exchange beside it, then recompute the radius-thick boundary slabs of
+    the split dimensions and splice them in (the same bits)."""
     radii = _op_radii(op)
-    return _local_offdiag(op, exchange_halos(x, mesh, spec, radii), radii)
+    if not overlap:
+        return _local_offdiag(op, exchange_halos(x, mesh, spec, radii), radii)
+    ready = ready_event(x)
+    x_zero = x.new_zeros([s + 2 * r for s, r in zip(x.shape, radii)])
+    x_zero[tuple(slice(r, r + s) for r, s in zip(radii, x.shape))] = x
+    off = _local_offdiag(op, x_zero, radii)
+    shell = exchange_halo_shell(x, mesh, spec, radii, ready)
+    for sl, _, slab in _slabs(op, shell.region, mesh, spec, radii):
+        off[sl] = slab
+    return off
 
 
 def _origin_parity(shape_local: Tuple[int, ...], mesh: GridMesh, spec: Spec) -> int:
@@ -177,17 +235,19 @@ def _global_parity(shape_local: Tuple[int, ...], mesh: GridMesh, spec: Spec,
     return ~red if _origin_parity(shape_local, mesh, spec) else red
 
 
-def make_halo_rbgs_sweep(mesh: GridMesh, spec: Spec):
+def make_halo_rbgs_sweep(mesh: GridMesh, spec: Spec, overlap: bool = False):
     """``sweep(op, x, b) -> x'``: a red-black Gauss-Seidel sweep on this
     rank's blocks (a stored or compressed operator).  Two exchanges per
-    sweep: the black half-sweep needs the freshly updated red halos."""
+    sweep: the black half-sweep needs the freshly updated red halos.  With
+    ``overlap`` each half-sweep's contraction runs beside its exchange
+    (:func:`_offdiag_exchange`)."""
 
     def sweep(op, x, b):
         cd = compute_dtype(x.dtype)
         red = _global_parity(tuple(x.shape), mesh, spec, x.device)
         diag, bc = op.diag.to(cd), b.to(cd)
         for color in (True, False):
-            off = _offdiag_exchange(op, x, mesh, spec)
+            off = _offdiag_exchange(op, x, mesh, spec, overlap)
             x = torch.where(red == color, (bc - off) / diag, x.to(cd)).to(b.dtype)
         return x
 
@@ -195,12 +255,12 @@ def make_halo_rbgs_sweep(mesh: GridMesh, spec: Spec):
 
 
 def make_halo_jacobi_sweep(mesh: GridMesh, spec: Spec,
-                           omega: float = DEFAULT_JACOBI_WEIGHT):
+                           omega: float = DEFAULT_JACOBI_WEIGHT, overlap: bool = False):
     """Damped-Jacobi sweep with one exchange."""
 
     def sweep(op, x, b):
         cd = compute_dtype(x.dtype)
-        off = _offdiag_exchange(op, x, mesh, spec)
+        off = _offdiag_exchange(op, x, mesh, spec, overlap)
         upd = (b.to(cd) - off) / op.diag.to(cd)
         return ((1.0 - omega) * x.to(cd) + omega * upd).to(x.dtype)
 
@@ -220,7 +280,7 @@ def global_max(value: torch.Tensor) -> torch.Tensor:
 
 
 def make_halo_chebyshev_smoother(mesh: GridMesh, spec: Spec, degree: int | None = None,
-                                 eig_ratio: float | None = None):
+                                 eig_ratio: float | None = None, overlap: bool = False):
     """Chebyshev smoother with one exchange per operator apply; the
     Gershgorin bound ``lmax`` is made global (``all_reduce(MAX)``) so every
     block damps the same band as the single-device smoother."""
@@ -238,7 +298,7 @@ def make_halo_chebyshev_smoother(mesh: GridMesh, spec: Spec, degree: int | None 
         sigma = theta / delta
 
         def apply_full(v):
-            return diag * v + _offdiag_exchange(op, v, mesh, spec)
+            return diag * v + _offdiag_exchange(op, v, mesh, spec, overlap)
 
         r = bc - apply_full(xc)
         d = (r / diag) / theta
@@ -254,12 +314,12 @@ def make_halo_chebyshev_smoother(mesh: GridMesh, spec: Spec, degree: int | None 
     return smooth
 
 
-def make_halo_residual(mesh: GridMesh, spec: Spec):
+def make_halo_residual(mesh: GridMesh, spec: Spec, overlap: bool = False):
     """``r = b - A x`` on this rank's blocks."""
 
     def res(op, x, b):
         cd = compute_dtype(x.dtype)
-        off = _offdiag_exchange(op, x, mesh, spec)
+        off = _offdiag_exchange(op, x, mesh, spec, overlap)
         return (b.to(cd) - off - op.diag.to(cd) * x.to(cd)).to(x.dtype)
 
     return res
@@ -288,67 +348,75 @@ def _kernel_module(op):
     return mod
 
 
-def _halfsweep_slab_fix(op, x_new, x, x_pad, b, color: int, mesh: GridMesh,
+def _halfsweep_slab_fix(op, x_new, x, region, b, color: int, mesh: GridMesh,
                         spec: Spec) -> torch.Tensor:
     """Recompute the half-sweep on the 1-voxel boundary slabs of split
-    dimensions from the exchanged halos and write it into the kernel's output
-    (whose masked contraction dropped every cross-block term there).  Slabs
-    that overlap at edges and corners write the same values."""
-    assert _op_radii(op) == (1,) * x.dim(), _op_radii(op)
+    dimensions from the exchanged halos (``region(box)``: that box of the
+    padded block) and write it into the kernel's output (whose masked
+    contraction dropped every cross-block term there).  Slabs that overlap
+    at edges and corners write the same values."""
+    radii = (1,) * x.dim()
+    assert _op_radii(op) == radii, _op_radii(op)
     cd = compute_dtype(x.dtype)
     flip = _origin_parity(tuple(x.shape), mesh, spec)
-    for d in sharded_dims(mesh, spec):
-        for lo in (True, False):
-            off = _local_offdiag_slab(op, x_pad, d, lo)
-            sl, pos = _slab_slice(x.shape, d, lo)
-            upd = (b[sl].to(cd) - off) / op.diag[sl].to(cd)
-            # the slab's own checkerboard from global coordinates; colour 0
-            # updates the globally even cells
-            red = parity_mask(tuple(upd.shape), x.device)
-            if (flip + pos) % 2:
-                red = ~red
-            x_new[sl] = torch.where(red == (color == 0), upd, x[sl].to(cd)).to(x.dtype)
+    for sl, pos, off in _slabs(op, region, mesh, spec, radii):
+        upd = (b[sl].to(cd) - off) / op.diag[sl].to(cd)
+        # the slab's own checkerboard from global coordinates; colour 0
+        # updates the globally even cells
+        red = parity_mask(tuple(upd.shape), x.device)
+        if (flip + pos) % 2:
+            red = ~red
+        x_new[sl] = torch.where(red == (color == 0), upd, x[sl].to(cd)).to(x.dtype)
     return x_new
 
 
+def _residual_slab_fix(op, r, x, region, b, mesh: GridMesh, spec: Spec) -> torch.Tensor:
+    """The residual's 1-voxel boundary slabs of split dimensions recomputed
+    from the exchanged halos and written into the kernel's output."""
+    radii = (1,) * x.dim()
+    assert _op_radii(op) == radii, _op_radii(op)
+    cd = compute_dtype(x.dtype)
+    for sl, _, off in _slabs(op, region, mesh, spec, radii):
+        r[sl] = (b[sl].to(cd) - off - op.diag[sl].to(cd) * x[sl].to(cd)).to(x.dtype)
+    return r
+
+
 def make_halo_kernel_rbgs_sweep(mesh: GridMesh, spec: Spec):
-    """Red-black Gauss-Seidel sweep through B14 on each block: per
-    half-sweep the kernel on the block (colour flipped on odd-origin
-    blocks), the halo exchange, then the boundary slabs recomputed and
-    spliced in.  Blocks the kernel does not take (2D, radius 2) run the
-    plain halo sweep instead, as the JAX package runs XLA there."""
-    fallback = make_halo_rbgs_sweep(mesh, spec)
+    """Red-black Gauss-Seidel sweep through B14 on each block, overlapped
+    in both modes: per half-sweep the kernel on the block (colour flipped on
+    odd-origin blocks) is queued first, the faces move beside it, then the
+    boundary slabs are recomputed and spliced in.  Blocks the kernel does
+    not take (2D, radius 2) run the overlapped plain halo sweep, as the JAX
+    package runs XLA there."""
+    fallback = make_halo_rbgs_sweep(mesh, spec, overlap=True)
 
     def sweep(op, x, b):
         if not kernel_ok(op, x):
             return fallback(op, x, b)
         mod = _kernel_module(op)
+        radii = (1,) * x.dim()
         flip = _origin_parity(tuple(x.shape), mesh, spec)
         for color in (0, 1):
+            ready = ready_event(x)
             x_new = mod.halfsweep_local(op, x, b, color ^ flip)
-            x_pad = exchange_halos(x, mesh, spec)
-            x = _halfsweep_slab_fix(op, x_new, x, x_pad, b, color, mesh, spec)
+            shell = exchange_halo_shell(x, mesh, spec, radii, ready)
+            x = _halfsweep_slab_fix(op, x_new, x, shell.region, b, color, mesh, spec)
         return x
 
     return sweep
 
 
 def make_halo_kernel_residual(mesh: GridMesh, spec: Spec):
-    """``r = b - A x`` through B14 on each block, boundary slabs recomputed
-    from the exchanged halos."""
-    fallback = make_halo_residual(mesh, spec)
+    """``r = b - A x`` through B14 on each block, the faces moving beside
+    it, boundary slabs recomputed from the exchanged halos."""
+    fallback = make_halo_residual(mesh, spec, overlap=True)
 
     def res(op, x, b):
         if not kernel_ok(op, x):
             return fallback(op, x, b)
+        ready = ready_event(x)
         r = _kernel_module(op).cuda_residual_local(op, x, b)
-        x_pad = exchange_halos(x, mesh, spec)
-        cd = compute_dtype(x.dtype)
-        for d in sharded_dims(mesh, spec):
-            for lo in (True, False):
-                off = _local_offdiag_slab(op, x_pad, d, lo)
-                sl, _ = _slab_slice(x.shape, d, lo)
-                r[sl] = (b[sl].to(cd) - off - op.diag[sl].to(cd) * x[sl].to(cd)).to(x.dtype)
-        return r
+        shell = exchange_halo_shell(x, mesh, spec, (1,) * x.dim(), ready)
+        return _residual_slab_fix(op, r, x, shell.region, b, mesh, spec)
 
     return res

@@ -302,9 +302,178 @@ def exchange_faces(mesh: GridMesh, d: int, to_lo: torch.Tensor | None,
                          from_lo_shape, from_hi_shape, dtype, device)
 
 
+# ---------------------------------------------------------------------------
+# the halo shell: faces exchanged beside the contraction
+# ---------------------------------------------------------------------------
+
+#: a box of the block padded by its halos: ``(start, stop)`` per dimension
+Box = Tuple[Tuple[int, int], ...]
+
+
+def halo_boxes(shape, radii, d: int) -> Tuple[Box, Box]:
+    """The low and high halo of dimension ``d`` in the padded block: whole
+    (corners included) along the dimensions before d, the interior along
+    those after it, the order in which the halos are exchanged."""
+    r, s = radii[d], shape[d]
+    return tuple(tuple((0, n + 2 * q) if dd < d else rows if dd == d else (q, q + n)
+                       for dd, (n, q) in enumerate(zip(shape, radii)))
+                 for rows in ((0, r), (s + r, s + 2 * r)))
+
+
+def assemble(box: Box, pieces, dtype: torch.dtype, device, pin: bool = False) -> torch.Tensor:
+    """``box`` of the padded block from ``pieces`` (``(box, tensor)`` pairs
+    in the same coordinates, on ``device``), zero where none reaches: a
+    piece that is the box itself, or a new tensor (``pin``: page-locked
+    host memory, whose cached blocks a large host face needs, where fresh
+    pages would each fault in)."""
+    for pbox, t in pieces:
+        if pbox == box:
+            return t
+    out = torch.zeros([b - a for a, b in box], dtype=dtype, device=device, pin_memory=pin)
+    for pbox, t in pieces:
+        lo = [max(a, pa) for (a, _), (pa, _) in zip(box, pbox)]
+        hi = [min(b, pb) for (_, b), (_, pb) in zip(box, pbox)]
+        if any(h <= l for l, h in zip(lo, hi)):
+            continue
+        out[tuple(slice(l - a, h - a) for l, h, (a, _) in zip(lo, hi, box))] = \
+            t[tuple(slice(l - pa, h - pa) for l, h, (pa, _) in zip(lo, hi, pbox))]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloShell:
+    """A block and the halos received around it: ``halos[d] = (lo, hi)``
+    per split dimension, in the shapes of :func:`halo_boxes` (None at the
+    mesh border: zeros)."""
+
+    x: torch.Tensor
+    radii: Tuple[int, ...]
+    halos: dict
+
+    def pieces(self) -> list:
+        shape = tuple(self.x.shape)
+        out = [(tuple((r, r + n) for n, r in zip(shape, self.radii)), self.x)]
+        for d, pair in self.halos.items():
+            out += [(box, t) for box, t in zip(halo_boxes(shape, self.radii, d), pair)
+                    if t is not None]
+        return out
+
+    def region(self, box: Box) -> torch.Tensor:
+        """``box`` of the padded block, the halos' corners included."""
+        return assemble(box, self.pieces(), self.x.dtype, self.x.device)
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def ready_event(x: torch.Tensor):
+    """An event on the current stream after ``x`` was last written (None on
+    the CPU): pass it to :func:`exchange_halo_shell` and queue the
+    contraction between the two."""
+    if x.device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(x.device))
+    return event
+
+
+def exchange_halo_shell(x: torch.Tensor, mesh: GridMesh, spec: Spec,
+                        radii: Tuple[int, ...], ready) -> HaloShell:
+    """The halos of ``x`` (as thick as ``radii``) from its neighbours along
+    the split dimensions, dimension by dimension, each face carrying the
+    halos already received (the corners), as :func:`..halo.exchange_halos`
+    does, but without a padded copy of the block.
+
+    On a CUDA tensor the faces move on a side stream that first waits on
+    ``ready`` (:func:`ready_event`), so work queued on the current stream
+    since then (the contraction) runs during the exchange; the current
+    stream waits for the received halos at the end.  Under gloo the host
+    blocks on the side stream's copies of the faces only, and the corners
+    of later dimensions are built from host tensors; under NCCL the
+    point-to-point operations are issued with the side stream current.  On
+    the CPU the same steps run in program order.  A ``madt.exchange`` range
+    in a profiler trace."""
+    shape = tuple(x.shape)
+    dims = sharded_dims(mesh, spec)
+    for d in dims:
+        if shape[d] < radii[d]:
+            raise ValueError(f"local block dim {d} ({shape[d]}) smaller than the stencil "
+                             f"radius {radii[d]}: raise min_local")
+    if not dims:
+        return HaloShell(x, tuple(radii), {})
+    slabs = {d: (x.narrow(d, 0, radii[d]), x.narrow(d, shape[d] - radii[d], radii[d]))
+             for d in dims}
+    with torch.profiler.record_function("madt.exchange"):
+        if x.device.type != "cuda":
+            return HaloShell(x, tuple(radii), _shell(slabs, mesh, radii, shape, x.dtype,
+                                                     x.device, False))
+        main = torch.cuda.current_stream(x.device)
+        side = _SIDE_STREAMS.get(x.device)
+        if side is None:
+            side = _SIDE_STREAMS[x.device] = torch.cuda.Stream(x.device)
+        with torch.cuda.stream(side):
+            side.wait_event(ready)
+            x.record_stream(side)
+            if _staged(x.device):
+                # the boundary slabs to page-locked host memory, then the
+                # host waits for these copies alone
+                slabs = {d: tuple(torch.empty(f.shape, dtype=x.dtype, pin_memory=True)
+                                  .copy_(f, non_blocking=True) for f in pair)
+                         for d, pair in slabs.items()}
+                side.synchronize()
+                halos = _shell(slabs, mesh, radii, shape, x.dtype, torch.device("cpu"), True)
+                halos = {d: tuple(None if t is None else t.to(x.device, non_blocking=True)
+                                  for t in pair) for d, pair in halos.items()}
+            else:
+                halos = _shell(slabs, mesh, radii, shape, x.dtype, x.device, False)
+            done = torch.cuda.Event()
+            done.record(side)
+        main.wait_event(done)
+        for pair in halos.values():
+            for t in pair:
+                if t is not None:
+                    t.record_stream(main)
+        return HaloShell(x, tuple(radii), halos)
+
+
+def _shell(slabs: dict, mesh: GridMesh, radii, shape, dtype, device, pin: bool) -> dict:
+    """The exchange of :func:`exchange_halo_shell` on ``device`` from
+    ``slabs = {d: (lo, hi)}``, the block's boundary slabs along every split
+    dimension there (views of the block, or its host copies under gloo);
+    ``pin``: page-locked faces and receive buffers."""
+    interior = tuple((r, r + n) for n, r in zip(shape, radii))
+    halos, received = {}, []
+    for d, pair in slabs.items():
+        r, s = radii[d], shape[d]
+        rows = ((r, 2 * r), (s, s + r))
+        pieces = [(interior[:d] + (rw,) + interior[d + 1:], slab)
+                  for rw, slab in zip(rows, pair)] + received
+        boxes = halo_boxes(shape, radii, d)
+        # the faces sent: the rows of the padded block just inside each halo
+        faces = [assemble(box[:d] + (rw,) + box[d + 1:], pieces, dtype, device, pin)
+                 for box, rw in zip(boxes, rows)]
+        halos[d] = _transfer(mesh.neighbour(d, -1), mesh.neighbour(d, 1), *faces,
+                             faces[0].shape, faces[1].shape, dtype, device, pin)
+        received += [(box, t) for box, t in zip(boxes, halos[d]) if t is not None]
+    return halos
+
+
 def _exchange(lo_peer, hi_peer, to_lo, to_hi, from_lo_shape, from_hi_shape, dtype, device):
     staged = _staged(device)
     comm = torch.device("cpu") if staged else device
+    if staged:
+        to_lo, to_hi = (None if t is None else t.to(comm) for t in (to_lo, to_hi))
+    recvs = _transfer(lo_peer, hi_peer, to_lo, to_hi, from_lo_shape, from_hi_shape, dtype,
+                      comm)
+    return tuple(None if r is None else r.to(device) for r in recvs)
+
+
+def _transfer(lo_peer, hi_peer, to_lo, to_hi, from_lo_shape, from_hi_shape, dtype, comm,
+              pin: bool = False):
+    """Send ``to_lo``/``to_hi`` and receive ``(from_lo, from_hi)``, every
+    tensor on ``comm`` (the host under gloo; ``pin``: page-locked receive
+    buffers), as one ``batch_isend_irecv`` waited on before returning (under
+    NCCL the wait is the current stream's, not the host's)."""
     ops, recvs = [], [None, None]
     for side, peer, send, shape in ((0, lo_peer, to_lo, from_lo_shape),
                                     (1, hi_peer, to_hi, from_hi_shape)):
@@ -312,19 +481,17 @@ def _exchange(lo_peer, hi_peer, to_lo, to_hi, from_lo_shape, from_hi_shape, dtyp
             continue
         # moved as bytes, so every dtype goes through every backend
         if send is not None and send.numel():
-            buf = send.contiguous().reshape(-1).view(torch.uint8)
-            if staged:
-                buf = buf.to(comm)
-            ops.append(dist.P2POp(dist.isend, buf, peer))
+            ops.append(dist.P2POp(dist.isend, send.contiguous().reshape(-1).view(torch.uint8),
+                                  peer))
         if shape is not None and math.prod(shape):
             nbytes = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-            recvs[side] = torch.empty(nbytes, dtype=torch.uint8, device=comm)
+            recvs[side] = torch.empty(nbytes, dtype=torch.uint8, device=comm, pin_memory=pin)
             ops.append(dist.P2POp(dist.irecv, recvs[side], peer))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
     shapes = (from_lo_shape, from_hi_shape)
-    return tuple(None if r is None else r.to(device).view(dtype).reshape(tuple(shp))
+    return tuple(None if r is None else r.view(dtype).reshape(tuple(shp))
                  for r, shp in zip(recvs, shapes))
 
 

@@ -95,6 +95,13 @@ def test_public_names_match_jax(ndim, layout):
             assert op.offset_index(list(off)) == jop.offset_index(off) == offsets.index(off)
 
 
+def test_version_matches_jax():
+    import multigridanisotropicdiffusion_tpu as jmadt
+    import multigridanisotropicdiffusion_tpu_torch as madt
+
+    assert madt.__version__ == jmadt.__version__ == "0.1.0"
+
+
 def test_symfield_rejects_bad_shapes():
     with pytest.raises(ValueError):
         symfield.as_sym_planes(np.zeros((4, 4, 3, 3)), (4, 5))

@@ -13,7 +13,8 @@ elsewhere as in ``tests/test_torch_cuda.py``: float64 1e-12 and float32
 1e-5 of the largest reference value, bf16 one bf16 ulp of each value with
 the float32 floor.
 The two-rank tests: gloo ranks sharing cuda:0 (faces staged through the
-host), and NCCL ranks on two cards where there are two.
+host), and NCCL ranks on two cards where there are two; the overlapped
+kernel path must give the blocking order's bits.
 """
 
 import numpy as np
@@ -195,6 +196,9 @@ def _two_ranks(tmp_path, backend):
 
 def _check_two_ranks(r):
     for name in ("sweep", "residual"):
+        # the overlapped schedule (faces on a side stream beside B14) gives
+        # the blocking order's bits
+        assert np.array_equal(r[name], r[f"{name}_blocking"])
         scale = np.abs(r[f"{name}_ref"]).max()
         assert np.abs(r[name] - r[f"{name}_ref"]).max() <= 1e-5 * scale
     assert (r["launches"] > 0).all()

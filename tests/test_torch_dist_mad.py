@@ -8,9 +8,10 @@ session: shard_map and overlap, Gauss-Seidel, Jacobi and Chebyshev, V-cycle
 and FMG, the kernel path (B14's and the block transfers' plain versions),
 padded odd shapes in 3D and 2D, collapsed and exact (radius-2) Galerkin
 levels, a ``min_local`` that agglomerates, and the bf16 defect schedule.
-Each case is held against the port's single-process solve and against the
-JAX package's ``mad_diffusion(..., mesh=...)`` on as many virtual CPU
-devices as the case has ranks (three cases here, the others in
+Five cases run again in the other halo mode and must give the same bits
+and cycles.  Each case is held against the port's single-process solve and
+against the JAX package's ``mad_diffusion(..., mesh=...)`` on as many
+virtual CPU devices as the case has ranks (three cases here, the others in
 ``tests/test_torch_dist_jax.py``, so that a second test worker compiles
 them): the same cycle count, residual histories to ``rtol=1e-9,
 atol=1e-15`` (as ``tests/test_torch_mad.py``), outputs to 1e-10; against the
@@ -30,7 +31,7 @@ from multigridanisotropicdiffusion_tpu.parallel.sharding import make_grid_mesh a
 from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
 from multigridanisotropicdiffusion_tpu_torch.parallel.sharding import GridMesh
 
-from .torch_dist_workers import MAD_CASES, mad_spawns, shared_run, solve_inputs
+from .torch_dist_workers import HALO_TWINS, MAD_CASES, mad_spawns, shared_run, solve_inputs
 
 #: the cases held against the JAX package's distributed solve here
 JAX_MESH_CASES = ("gs_fmg_overlap", "kernels_vcycle", "padded_kernels")
@@ -68,6 +69,17 @@ def test_distributed_solve_matches_single_process(dist_results, name):
     _assert_same_solve(dist_results[f"{name}/output"], dist_results[f"{name}/history"][0],
                        dist_results[f"{name}/cycles"][0], ref.output.numpy(),
                        ref.residual_history[0].numpy(), ref.num_cycles[0])
+
+
+@pytest.mark.parametrize("name", list(HALO_TWINS))
+def test_halo_modes_solve_alike(dist_results, name):
+    """The case solved again in the other halo mode ('shard_map' against
+    'overlap', on the same mesh): the same bits and the same cycles."""
+    twin = f"{name}/{HALO_TWINS[name]}"
+    assert MADConfig(**MAD_CASES[name][2]).halo != HALO_TWINS[name]
+    for key in ("output", "history", "cycles"):
+        assert np.array_equal(dist_results[f"{twin}/{key}"], dist_results[f"{name}/{key}"]), key
+    assert np.isfinite(dist_results[f"{twin}/output"]).all()
 
 
 def jax_mesh_solve(name):

@@ -3,12 +3,17 @@ masking, on the CPU in float64.
 
 One spawn of 8 gloo ranks (``tests/torch_dist_workers.py``) runs every halo
 op on every problem and gathers the results; each (problem, op) is then its
-own test, held to 1e-12 against the JAX package's ``make_halo_*`` (with and
-without ``overlap``, which the port's one exchange-then-contract path both
-matches; its Pallas form in interpret mode, as ``tests/test_halo.py`` runs
-it) and against the global sweep; 10 repeated sweeps to 1e-10.  The kernel ops run B14's plain
-versions here (CPU tensors).  The masking tests hold the plain masks against
-a direct evaluation of the JAX package's ``_mask_local_shells`` and
+own test, held to 1e-12 against the JAX package's ``make_halo_*`` (the
+port's ``overlap`` form against its ``overlap`` form; its Pallas form in
+interpret mode, as ``tests/test_halo.py`` runs it) and against the global
+sweep; 10 repeated sweeps to 1e-10.  The port's two schedules are
+``torch.equal`` on every problem and on a radius-2 exact Galerkin level,
+and its kernel path (overlapped) ``torch.equal`` to the blocking order.  The
+kernel ops run B14's plain versions here (CPU tensors).  In one process, a
+recording stub of the transport shows the order of contraction and
+exchange in each mode, and that the kernel path builds no padded copy of
+the block.  The masking tests hold the plain masks against a direct
+evaluation of the JAX package's ``_mask_local_shells`` and
 ``_mask_local_shells_stored``.
 """
 
@@ -29,13 +34,29 @@ from multigridanisotropicdiffusion_tpu.ops.compressed import (
 from multigridanisotropicdiffusion_tpu.ops.dca import assemble_dca as jassemble_dca
 from multigridanisotropicdiffusion_tpu.parallel import halo as jhalo
 from multigridanisotropicdiffusion_tpu.parallel.sharding import make_grid_mesh as jmesh
-from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator
+from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, residual
 from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers, cuda_stencil_stored
 from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
-from multigridanisotropicdiffusion_tpu_torch.ops.smoothers import gs_halfsweep
+from multigridanisotropicdiffusion_tpu_torch.ops.smoothers import (
+    chebyshev_smoother,
+    gs_halfsweep,
+    jacobi_sweep,
+    rb_gauss_seidel_sweep,
+)
+from multigridanisotropicdiffusion_tpu_torch.parallel.sharding import GridMesh
 from multigridanisotropicdiffusion_tpu_torch.utils.convert import operator_from_numpy
 
-from .torch_dist_workers import HALO_OPS, HALO_PROBLEMS, halo_inputs, halo_worker, run_ranks
+from .torch_dist_workers import (
+    HALO_MODE_OPS,
+    HALO_OPS,
+    HALO_PROBLEMS,
+    halo_inputs,
+    halo_mode_fns,
+    halo_operator,
+    halo_worker,
+    r2_level,
+    run_ranks,
+)
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +105,7 @@ def _jax_halo(name, op_name):
 @pytest.mark.parametrize("op_name", [o for o in HALO_OPS if not o.endswith("_x10")])
 @pytest.mark.parametrize("problem", list(HALO_PROBLEMS))
 def test_halo_op_matches_jax_and_global(dist_results, problem, op_name):
-    got = dist_results[f"{problem}/{op_name.replace('_overlap', '')}"]
+    got = dist_results[f"{problem}/{op_name}"]
     op, x, b, _, _ = _jax_problem(problem)
     halo_fn, global_fn = _jax_halo(problem, op_name)
     want_halo = np.asarray(jax.jit(halo_fn)(op, x, b))
@@ -108,6 +129,138 @@ def test_halo_repeated_sweeps_track_global(dist_results, problem, op_name):
         xg = jsm.rb_gauss_seidel_sweep(op, xg, b)
     np.testing.assert_allclose(got, np.asarray(xh), rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(got, np.asarray(xg), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("op_name", HALO_MODE_OPS)
+@pytest.mark.parametrize("problem", list(HALO_PROBLEMS) + ["r2"])
+def test_halo_modes_are_bit_for_bit(dist_results, problem, op_name):
+    """The zero-halo contraction with the slabs spliced in adds the same
+    terms in the same order as the exchange-first one."""
+    got, want = dist_results[f"{problem}/{op_name}_overlap"], dist_results[f"{problem}/{op_name}"]
+    assert np.isfinite(got).all() and np.array_equal(got, want)
+
+
+_GLOBAL = {"rbgs": rb_gauss_seidel_sweep, "jacobi": jacobi_sweep,
+           "chebyshev": chebyshev_smoother, "residual": residual}
+
+
+@pytest.mark.parametrize("op_name", HALO_MODE_OPS)
+def test_radius2_level_matches_global(dist_results, op_name):
+    """Both schedules on the exact Galerkin level (halos and slabs 2 thick)
+    against the port's single-process op."""
+    op, x, b = r2_level()
+    want = _GLOBAL[op_name](op, x, b).numpy()
+    for key in (op_name, f"{op_name}_overlap"):
+        np.testing.assert_allclose(dist_results[f"r2/{key}"], want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("op_name", ["kernel_rbgs", "kernel_residual"])
+@pytest.mark.parametrize("problem", list(HALO_PROBLEMS))
+def test_kernel_path_equals_blocking_order(dist_results, problem, op_name):
+    got = dist_results[f"{problem}/{op_name}"]
+    assert np.array_equal(got, dist_results[f"{problem}/{op_name}_blocking"])
+
+
+# ---------------------------------------------------------------------------
+# the order of contraction and exchange, one process, a stub transport
+# ---------------------------------------------------------------------------
+
+
+def _stub_mesh():
+    """Rank 0 of a (2, 1, 1) mesh, with no process group: only the stub
+    transport below talks to the neighbour."""
+    return GridMesh((2, 1, 1), ("x", "y", "z"), 0, (0, 0, 0), (None, None, None),
+                    torch.device("cpu"))
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Record the exchanges (the transport: random halos from the upper
+    neighbour), the generic contractions and B14's launches, in order."""
+    from multigridanisotropicdiffusion_tpu_torch.parallel import halo as H
+    from multigridanisotropicdiffusion_tpu_torch.parallel import sharding
+
+    log = []
+    gen = torch.Generator().manual_seed(0)
+
+    def transfer(lo_peer, hi_peer, to_lo, to_hi, lo_shape, hi_shape, dtype, comm, pin=False):
+        log.append("exchange")
+        return tuple(None if peer is None else torch.randn(shp, generator=gen, dtype=dtype)
+                     for peer, shp in ((lo_peer, lo_shape), (hi_peer, hi_shape)))
+
+    def recording(name, fn):
+        def wrapped(*args):
+            log.append(name)
+            return fn(*args)
+        return wrapped
+
+    monkeypatch.setattr(sharding, "_transfer", transfer)
+    monkeypatch.setattr(H, "_local_offdiag", recording("contract", H._local_offdiag))
+    for name in ("halfsweep_local", "cuda_residual_local"):
+        monkeypatch.setattr(cuda_smoothers, name,
+                            recording("kernel", getattr(cuda_smoothers, name)))
+    return log
+
+
+def _stub_problem(form):
+    shape = (10, 5, 4)
+    tensor, x, b = halo_inputs(shape, 8)
+    return halo_operator(form, tensor, shape), torch.as_tensor(x), torch.as_tensor(b)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("op_name", HALO_MODE_OPS)
+def test_overlap_contracts_before_the_exchange(recorded, op_name, overlap):
+    """'overlap' queues the zero-halo contraction before the exchange
+    starts, 'shard_map' contracts after it; each contraction of the op
+    pairs with one exchange."""
+    from multigridanisotropicdiffusion_tpu_torch.parallel import halo as H
+
+    fns = halo_mode_fns(_stub_mesh(), ("x", None, None))
+    op, x, b = _stub_problem("stored")
+    fns[op_name + ("_overlap" if overlap else "")](op, x, b)
+    pair = ["contract", "exchange"] if overlap else ["exchange", "contract"]
+    n = len(recorded) // 2
+    assert n >= 1 and recorded == pair * n
+    assert H._op_radii(op) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("kind", ["sweep", "residual"])
+def test_kernel_path_launches_before_the_exchange(recorded, monkeypatch, kind):
+    """The kernel path launches B14 before each exchange starts, never
+    calls ``exchange_halos`` and makes no tensor of the padded block's size
+    (only slab-local pieces), in either mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from multigridanisotropicdiffusion_tpu_torch.parallel import halo as H
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel path called exchange_halos")
+
+    monkeypatch.setattr(H, "exchange_halos", refuse)
+    sizes = []
+
+    class Sizes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor):
+                    sizes.append(tuple(t.shape))
+            return out
+
+    mesh, spec = _stub_mesh(), ("x", None, None)
+    op, x, b = _stub_problem("compressed")
+    # B14's plain version pads the whole block itself: the kernel on the
+    # card does not, so it is left out of the count here
+    monkeypatch.setattr(cuda_smoothers, "halfsweep_local_plain", lambda op, x, b, c: x.clone())
+    monkeypatch.setattr(cuda_smoothers, "residual_local_plain", lambda op, x, b: x.clone())
+    fn = (H.make_halo_kernel_rbgs_sweep if kind == "sweep" else H.make_halo_kernel_residual)
+    with Sizes():
+        fn(mesh, spec)(op, x, b)
+    assert recorded == ["kernel", "exchange"] * (2 if kind == "sweep" else 1)
+    padded = tuple(s + 2 for s in x.shape)
+    assert sizes and padded not in sizes
+    assert max(int(np.prod(s)) for s in sizes) <= x.numel()
 
 
 # ---------------------------------------------------------------------------

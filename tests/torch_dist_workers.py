@@ -136,12 +136,18 @@ HALO_PROBLEMS = {
     "odd_origin": ((18, 24, 16), (2, 2, 2), ("x", "y", "z"), "compressed", 2),
     "partial": ((20, 16, 12), (4, 2, 1), ("x", "y", None), "compressed", 3),
 }
-#: ops held against the JAX package's on every problem (``*_overlap``: its
-#: overlap=True form, which the port's one path also matches); the kernel
-#: ops (B14's plain versions here) on the radius-1 operators of every problem
+#: ops held against the JAX package's on every problem (``*_overlap``: the
+#: port's overlap=True form, against the JAX package's overlap=True form;
+#: the others exchange first, as its overlap=False form); the kernel ops
+#: (B14's plain versions here) on the radius-1 operators of every problem
 HALO_OPS = ("rbgs", "rbgs_overlap", "jacobi", "jacobi_overlap", "chebyshev",
             "chebyshev_overlap", "residual", "residual_overlap", "kernel_rbgs",
             "kernel_residual", "rbgs_x10", "kernel_rbgs_x10")
+#: the generic ops that have both schedules
+HALO_MODE_OPS = ("rbgs", "jacobi", "chebyshev", "residual")
+#: a radius-2 level: level 1 of an exact Galerkin hierarchy of this shape
+#: (16^3, 117 planes) on the (2, 2, 2) mesh, blocks of 8; its seed
+R2_PROBLEM = ((32, 32, 32), 4)
 
 
 def halo_operator(form, tensor, shape, dtype=None):
@@ -156,6 +162,67 @@ def halo_operator(form, tensor, shape, dtype=None):
     if form == "stored":
         return assemble_dca(planes, spacing, 0.1)
     return assemble_compressed_dca(planes, spacing, 0.1)
+
+
+def r2_level(dtype=None):
+    """The radius-2 exact Galerkin level of :data:`R2_PROBLEM`, and x and b
+    on it."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+    from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
+    from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
+
+    shape, seed = R2_PROBLEM
+    tensor, _, _ = halo_inputs(shape, seed)
+    planes = as_sym_planes(tensor, shape, dtype=dtype or torch.float64, device="cpu")
+    op = build_hierarchy(planes, build_level_descriptors(shape), 0.1, "galerkin", "stored",
+                         False, "exact").operators[1]
+    rng = np.random.default_rng(seed)
+    x, b = (torch.as_tensor(rng.normal(size=op.shape)) for _ in range(2))
+    return op, x, b
+
+
+def blocking_kernel_ops(mesh, spec):
+    """The kernel path in the blocking order, as ``halo='shard_map'``
+    schedules the plain path: the padded block exchanged first
+    (``exchange_halos``), then B14, then the slab fix read from that padded
+    block."""
+    from multigridanisotropicdiffusion_tpu_torch.parallel import halo as H
+
+    def padded(x_pad):
+        return lambda box: x_pad[tuple(slice(lo, hi) for lo, hi in box)]
+
+    def sweep(op, x, b):
+        mod = H._kernel_module(op)
+        flip = H._origin_parity(tuple(x.shape), mesh, spec)
+        for color in (0, 1):
+            x_pad = H.exchange_halos(x, mesh, spec)
+            x_new = mod.halfsweep_local(op, x, b, color ^ flip)
+            x = H._halfsweep_slab_fix(op, x_new, x, padded(x_pad), b, color, mesh, spec)
+        return x
+
+    def res(op, x, b):
+        x_pad = H.exchange_halos(x, mesh, spec)
+        r = H._kernel_module(op).cuda_residual_local(op, x, b)
+        return H._residual_slab_fix(op, r, x, padded(x_pad), b, mesh, spec)
+
+    return sweep, res
+
+
+def halo_mode_fns(mesh, spec):
+    """``{name: op}``: the generic ops in both schedules (``*_overlap``)."""
+    from multigridanisotropicdiffusion_tpu_torch.parallel import halo as H
+
+    fns = {}
+    for overlap, tag in ((False, ""), (True, "_overlap")):
+        fns.update({
+            f"rbgs{tag}": H.make_halo_rbgs_sweep(mesh, spec, overlap),
+            f"jacobi{tag}": H.make_halo_jacobi_sweep(mesh, spec, overlap=overlap),
+            f"chebyshev{tag}": H.make_halo_chebyshev_smoother(mesh, spec, overlap=overlap),
+            f"residual{tag}": H.make_halo_residual(mesh, spec, overlap),
+        })
+    return fns
 
 
 def halo_worker(rank, world, store, out):
@@ -182,14 +249,11 @@ def halo_worker(rank, world, store, out):
         op_l = shard_operator(op, mesh, spec=spec)
         x_l = shard_field(torch.as_tensor(x), mesh, spec=spec)
         b_l = shard_field(torch.as_tensor(b), mesh, spec=spec)
-        fns = {
-            "rbgs": H.make_halo_rbgs_sweep(mesh, spec),
-            "jacobi": H.make_halo_jacobi_sweep(mesh, spec),
-            "chebyshev": H.make_halo_chebyshev_smoother(mesh, spec),
-            "residual": H.make_halo_residual(mesh, spec),
-            "kernel_rbgs": H.make_halo_kernel_rbgs_sweep(mesh, spec),
-            "kernel_residual": H.make_halo_kernel_residual(mesh, spec),
-        }
+        fns = halo_mode_fns(mesh, spec)
+        fns["kernel_rbgs"] = H.make_halo_kernel_rbgs_sweep(mesh, spec)
+        fns["kernel_residual"] = H.make_halo_kernel_residual(mesh, spec)
+        fns["kernel_rbgs_blocking"], fns["kernel_residual_blocking"] = \
+            blocking_kernel_ops(mesh, spec)
         for key, fn in fns.items():
             results[f"{name}/{key}"] = gather_level(fn(op_l, x_l, b_l), mesh, spec)
         for key in ("rbgs", "kernel_rbgs"):
@@ -197,6 +261,12 @@ def halo_worker(rank, world, store, out):
             for _ in range(10):
                 y = fns[key](op_l, y, b_l)
             results[f"{name}/{key}_x10"] = gather_level(y, mesh, spec)
+    mesh, spec = meshes[(2, 2, 2)], ("x", "y", "z")
+    op, x, b = r2_level()
+    op_l = shard_operator(op, mesh, spec=spec)
+    x_l, b_l = shard_field(x, mesh, spec=spec), shard_field(b, mesh, spec=spec)
+    for key, fn in halo_mode_fns(mesh, spec).items():
+        results[f"r2/{key}"] = gather_level(fn(op_l, x_l, b_l), mesh, spec)
     _save(rank, out, results)
 
 
@@ -234,6 +304,12 @@ MAD_CASES = {
 }
 
 
+#: cases solved a second time in the other halo mode (``<name>/<mode>/...``)
+HALO_TWINS = {"gs_vcycle_shard_map": "overlap", "jacobi_shard_map": "overlap",
+              "chebyshev_overlap": "shard_map", "padded_2d": "shard_map",
+              "galerkin_exact_r2": "shard_map"}
+
+
 def mad_spawns():
     """Spawns of at most three cases with one rank count each, so that each
     stays well inside its join timeout when the test workers share the
@@ -259,11 +335,15 @@ def mad_worker(rank, world, store, out, names):
         if mshape not in meshes:
             meshes[mshape] = make_grid_mesh(len(mshape), mshape, device="cpu")
         tensor, image = solve_inputs(shape)
-        res = mad_diffusion(image, tensor, config=MADConfig(**kw), mesh=meshes[mshape],
-                            min_local=min_local, device="cpu")
-        results[f"{name}/output"] = gather_field(res.output, meshes[mshape])
-        results[f"{name}/history"] = res.residual_history
-        results[f"{name}/cycles"] = res.num_cycles
+        runs = {"": kw}
+        if name in HALO_TWINS:
+            runs[f"/{HALO_TWINS[name]}"] = dict(kw, halo=HALO_TWINS[name])
+        for tag, cfg in runs.items():
+            res = mad_diffusion(image, tensor, config=MADConfig(**cfg), mesh=meshes[mshape],
+                                min_local=min_local, device="cpu")
+            results[f"{name}{tag}/output"] = gather_field(res.output, meshes[mshape])
+            results[f"{name}{tag}/history"] = res.residual_history
+            results[f"{name}{tag}/cycles"] = res.num_cycles
     _save(rank, out, results)
 
 
@@ -426,9 +506,10 @@ def build_lock_worker(rank, world, store, directory, log):
 
 def cuda_worker(rank, world, store, out, backend):
     """Two ranks on the card: gloo ranks share cuda:0, NCCL ranks take one
-    card each.  The B14 sweep and residual on a (2, 1, 1) mesh and a
-    ``MADConfig.cuda()`` solve, gathered; rank 0 adds the single-device
-    kernel runs and each rank its B14 launches."""
+    card each.  The B14 sweep and residual on a (2, 1, 1) mesh (overlapped,
+    and in the blocking order) and a ``MADConfig.cuda()`` solve, gathered;
+    rank 0 adds the single-device kernel runs and each rank its B14
+    launches."""
     import torch
     import torch.distributed as dist
 
@@ -463,6 +544,9 @@ def cuda_worker(rank, world, store, out, backend):
         "residual": gather_level(H.make_halo_kernel_residual(mesh, spec)(op_l, x_l, b_l),
                                  mesh, spec),
     }
+    sweep, res = blocking_kernel_ops(mesh, spec)
+    results["sweep_blocking"] = gather_level(sweep(op_l, x_l, b_l), mesh, spec)
+    results["residual_blocking"] = gather_level(res(op_l, x_l, b_l), mesh, spec)
     sol_t, image = solve_inputs((32, 32, 32))
     cfg = MADConfig.cuda(time_step=0.1, tolerance=1e-6)
     res = mad_diffusion(image, sol_t, config=cfg, mesh=mesh, min_local=4)
