@@ -60,6 +60,9 @@ from ..ops.galerkin import assemble_galerkin_parabolic, prune_stored_operator
 from ..ops.matfree import MatrixFreeDCAOperator
 from ..ops.smoothers import DEFAULT_JACOBI_WEIGHT, make_residual, make_smoother
 from ..ops.transfer import prolong, prolong_add, restrict, restrict_tensor
+from ..utils.profiling import (MAD, MAD_ASSEMBLE, MAD_CAST, MAD_COARSE, MAD_CYCLE_HI,
+                               MAD_CYCLE_LO, MAD_RESIDUAL, MAD_RESTRICT, MAD_SETUP,
+                               MAD_STEP, MAD_SYNC, span)
 
 VCYCLE = "vcycle"
 FMG = "fmg"
@@ -206,7 +209,8 @@ def build_hierarchy(
     else:
         raise ValueError(f"unknown operator_repr: {operator_repr!r}")
 
-    ops = [make_op(tensor, levels[0])]
+    with span(MAD_ASSEMBLE):
+        ops = [make_op(tensor, levels[0])]
     t = tensor
     if coarse_operator == GALERKIN:
         # the literal R A P of A = I - dt*L loses diagonal dominance down
@@ -214,19 +218,24 @@ def build_hierarchy(
         # (ops.galerkin.assemble_galerkin_parabolic)
         collapse = galerkin_variant == "collapsed"
         for lvl in levels[1:]:
-            ops.append(assemble_galerkin_parabolic(ops[-1], lvl.centering,
-                                                   collapse=collapse))
+            with span(MAD_ASSEMBLE):
+                ops.append(assemble_galerkin_parabolic(ops[-1], lvl.centering,
+                                                       collapse=collapse))
     elif coarse_operator == DCA:
         for lvl in levels[1:]:
-            t = restrict_tensor(t, lvl.centering, use_kernels)
-            ops.append(make_op(t, lvl))
+            with span(MAD_RESTRICT):
+                t = restrict_tensor(t, lvl.centering, use_kernels)
+            with span(MAD_ASSEMBLE):
+                ops.append(make_op(t, lvl))
     else:
         raise ValueError(f"unknown coarse operator: {coarse_operator!r}")
-    if isinstance(ops[-1], StencilOperator):
-        coarsest_stored = ops[-1]
-    else:
-        coarsest_stored = assemble_dca(t, levels[-1].spacing, time_step)
-    return Hierarchy(operators=tuple(ops), solver=build_coarse_solver(coarsest_stored))
+    with span(MAD_COARSE):
+        if isinstance(ops[-1], StencilOperator):
+            coarsest_stored = ops[-1]
+        else:
+            coarsest_stored = assemble_dca(t, levels[-1].spacing, time_step)
+        solver = build_coarse_solver(coarsest_stored)
+    return Hierarchy(operators=tuple(ops), solver=solver)
 
 
 class Transfers(NamedTuple):
@@ -403,14 +412,19 @@ def _solve_time_step(hier: Hierarchy, levels: Tuple[GridLevel, ...],
     hist = torch.zeros((config.max_cycles,), dtype=dtype, device=b.device)
     relres = torch.tensor(math.inf, dtype=dtype, device=b.device)
     k = 0
-    while k < config.max_cycles and float(relres) > tol:
-        if config.cycle == SMOOTHER:
-            x = _at(smooth, 0)(op0, x, b)
-        else:
-            x = v_cycle(hier, levels, smooth, config.iterations_per_grid, x, b,
-                        0, resid, transfers=transfers)
-        relres = norm(_at(resid, 0)(op0, x, b)) / rhs_norm
-        hist[k] = relres
+    relres_host = math.inf
+    while k < config.max_cycles and relres_host > tol:
+        with span(MAD_CYCLE_HI):
+            if config.cycle == SMOOTHER:
+                x = _at(smooth, 0)(op0, x, b)
+            else:
+                x = v_cycle(hier, levels, smooth, config.iterations_per_grid, x, b,
+                            0, resid, transfers=transfers)
+        with span(MAD_RESIDUAL):
+            relres = norm(_at(resid, 0)(op0, x, b)) / rhs_norm
+            hist[k] = relres
+        with span(MAD_SYNC):
+            relres_host = float(relres)
         k += 1
     return x, k, relres, hist
 
@@ -439,7 +453,8 @@ def _solve_time_step_defect(
     lo = torch_dtype(config.defect_dtype)
     dtype = b.dtype
     op0 = hier.operators[0]
-    hier_lo = _cast_operators(hier, lo)
+    with span(MAD_CAST):
+        hier_lo = _cast_operators(hier, lo)
     tol = _in_dtype(config.tolerance, dtype)
     switch = float(config.defect_switch_factor)
     hi_top = _in_dtype(config.tolerance * switch, dtype)
@@ -469,14 +484,18 @@ def _solve_time_step_defect(
         # solve and a low-precision one cannot (the window below); cheap
         # low-precision cycles everywhere else
         if switch > 0.0 and hi_bottom < relres_host <= hi_top:
-            d = inner(hier, r)
+            with span(MAD_CYCLE_HI):
+                d = inner(hier, r)
         else:
-            d = inner(hier_lo, r.to(lo)).to(dtype)
-        x = x + d
-        r = resid0(op0, x, b)
-        relres = norm(r) / rhs_norm
-        hist[k] = relres
-        relres_host = float(relres)
+            with span(MAD_CYCLE_LO):
+                d = inner(hier_lo, r.to(lo)).to(dtype)
+        with span(MAD_RESIDUAL):
+            x = x + d
+            r = resid0(op0, x, b)
+            relres = norm(r) / rhs_norm
+            hist[k] = relres
+        with span(MAD_SYNC):
+            relres_host = float(relres)
         k += 1
     return x, k, relres, hist
 
@@ -484,7 +503,8 @@ def _solve_time_step_defect(
 def _solve_all_steps(hier, levels, config, b, ops: _SolveOps | None = None) -> MADResult:
     hists, counts, finals = [], [], []
     for _ in range(config.number_of_steps):
-        b, k, relres, hist = _solve_time_step(hier, levels, config, b, ops)
+        with span(MAD_STEP):
+            b, k, relres, hist = _solve_time_step(hier, levels, config, b, ops)
         hists.append(hist)
         counts.append(k)
         finals.append(relres)
@@ -603,61 +623,63 @@ def mad_diffusion(
         blocks would drop below ``min_local`` points per axis are
         replicated (agglomeration).
     """
-    config = config or MADConfig()
-    if mesh is not None:
-        from ..parallel.sharding import require_mesh
+    with span(MAD):
+        config = config or MADConfig()
+        if mesh is not None:
+            from ..parallel.sharding import require_mesh
 
-        require_mesh(mesh)
-        _check_mesh_config(config, min_local)
-        if device is not None and torch.device(device) != mesh.device:
-            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
-        device = mesh.device
-    device = resolve_device(device)
-    if dtype is None:
-        dtype = torch.float64 if device.type == "cpu" else torch.float32
-    dtype = torch_dtype(dtype)
+            require_mesh(mesh)
+            _check_mesh_config(config, min_local)
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+        device = resolve_device(device)
+        if dtype is None:
+            dtype = torch.float64 if device.type == "cpu" else torch.float32
+        dtype = torch_dtype(dtype)
 
-    shape = tuple(image.shape)
-    levels = build_level_descriptors(shape, spacing)
-    if isinstance(image, torch.Tensor):
-        b = image.to(device=device, dtype=dtype)
-    else:
-        b = torch.as_tensor(np.asarray(image), dtype=dtype, device=device)
-    b = b.contiguous()
+        shape = tuple(image.shape)
+        levels = build_level_descriptors(shape, spacing)
+        if isinstance(image, torch.Tensor):
+            b = image.to(device=device, dtype=dtype)
+        else:
+            b = torch.as_tensor(np.asarray(image), dtype=dtype, device=device)
+        b = b.contiguous()
 
-    if hierarchy is None:
-        planes = as_sym_planes(tensor, shape, dtype=dtype, device=device)
-        hierarchy = build_hierarchy(planes, levels, config.time_step,
-                                    config.coarse_operator, config.operator_repr,
-                                    config.use_kernels, config.galerkin_variant)
-        del planes
-        if (config.coarse_operator == GALERKIN and config.galerkin_variant == "exact"
-                and config.galerkin_prune_tol > 0):
-            # after the coarse LU, as in the JAX package: the coarsest
-            # level's solver keeps the unpruned operator
-            ops = (hierarchy.operators[0],) + tuple(
-                prune_stored_operator(op, config.galerkin_prune_tol)
-                for op in hierarchy.operators[1:])
-            hierarchy = Hierarchy(operators=ops, solver=hierarchy.solver)
+        if hierarchy is None:
+            with span(MAD_SETUP):
+                planes = as_sym_planes(tensor, shape, dtype=dtype, device=device)
+                hierarchy = build_hierarchy(planes, levels, config.time_step,
+                                            config.coarse_operator, config.operator_repr,
+                                            config.use_kernels, config.galerkin_variant)
+                del planes
+                if (config.coarse_operator == GALERKIN and config.galerkin_variant == "exact"
+                        and config.galerkin_prune_tol > 0):
+                    # after the coarse LU, as in the JAX package: the coarsest
+                    # level's solver keeps the unpruned operator
+                    ops = (hierarchy.operators[0],) + tuple(
+                        prune_stored_operator(op, config.galerkin_prune_tol)
+                        for op in hierarchy.operators[1:])
+                    hierarchy = Hierarchy(operators=ops, solver=hierarchy.solver)
 
-    if mesh is None:
-        result = _solve_all_steps(hierarchy, levels, config, b)
-    else:
-        from ..parallel.padding import pad_field, pad_hierarchy
-        from ..parallel.sharding import output_block, shard_field, shard_hierarchy
+        if mesh is None:
+            result = _solve_all_steps(hierarchy, levels, config, b)
+        else:
+            from ..parallel.padding import pad_field, pad_hierarchy
+            from ..parallel.sharding import output_block, shard_field, shard_hierarchy
 
-        layouts = _level_layouts(mesh, levels, min_local)
-        pshapes = tuple(lay.pshape for lay in layouts)
-        # pad-to-divisible embeddings, then this rank's blocks
-        hierarchy = shard_hierarchy(pad_hierarchy(hierarchy, pshapes), mesh, min_local)
-        b = shard_field(pad_field(b, pshapes[0]), mesh, spec=layouts[0].spec)
-        result = _solve_all_steps(hierarchy, levels, config, b,
-                                  _mesh_ops(mesh, levels, layouts, config))
-        result = result._replace(output=output_block(
-            result.output, mesh, shape, layouts[0].spec, pshapes[0]))
-    if config.verbose:
-        print_residual_trace(result, config)
-    return result
+            layouts = _level_layouts(mesh, levels, min_local)
+            pshapes = tuple(lay.pshape for lay in layouts)
+            # pad-to-divisible embeddings, then this rank's blocks
+            hierarchy = shard_hierarchy(pad_hierarchy(hierarchy, pshapes), mesh, min_local)
+            b = shard_field(pad_field(b, pshapes[0]), mesh, spec=layouts[0].spec)
+            result = _solve_all_steps(hierarchy, levels, config, b,
+                                      _mesh_ops(mesh, levels, layouts, config))
+            result = result._replace(output=output_block(
+                result.output, mesh, shape, layouts[0].spec, pshapes[0]))
+        if config.verbose:
+            print_residual_trace(result, config)
+        return result
 
 
 def print_residual_trace(result: MADResult, config: MADConfig,

@@ -47,6 +47,7 @@ from ..ops import cuda_vesselness
 from ..ops.cuda_conv import edge_pad
 from ..ops.eigen3 import eigh3, sort_by_abs3
 from ..ops.hessian import fd_factors, hessian, kernel_radius, smoothed_field_valid_z
+from ..utils.profiling import VED, VED_PIPELINE, span
 from .mad import VCYCLE, MADConfig, MADResult, mad_diffusion, resolve_device, torch_dtype
 
 
@@ -348,57 +349,60 @@ def ved(image, spacing: Sequence[float] | None = None,
     float64 on the CPU and float32 on CUDA by default.  ``mesh``: a
     :class:`~..parallel.sharding.GridMesh`; every rank passes the whole
     volume and gets back its blocks (output, vesselness, tensor)."""
-    config = config or VEDConfig()
-    if image.ndim != 3:
-        raise ValueError(f"VED expects a 3D volume, got rank {image.ndim}")
-    if mesh is not None:
-        from ..parallel.sharding import require_mesh
+    with span(VED):
+        config = config or VEDConfig()
+        if image.ndim != 3:
+            raise ValueError(f"VED expects a 3D volume, got rank {image.ndim}")
+        if mesh is not None:
+            from ..parallel.sharding import require_mesh
 
-        require_mesh(mesh)
-        device = mesh.device if device is None else device
-    device = resolve_device(device)
-    if dtype is None:
-        dtype = torch.float64 if device.type == "cpu" else torch.float32
-    dtype = torch_dtype(dtype)
-    if spacing is None:
-        spacing = (1.0,) * 3
-    spacing = tuple(float(h) for h in spacing)
-    if isinstance(image, torch.Tensor):
-        u = image.to(device=device, dtype=dtype)
-    else:
-        u = torch.as_tensor(np.asarray(image), dtype=dtype, device=device)
-    u = u.contiguous()
-    mad_cfg = config.mad_config()
-    args = (tuple(config.scales), spacing, config.alpha, config.beta, config.gamma,
-            config.epsilon, config.omega, config.sensitivity)
-    if mesh is None:
-        pipeline = functools.partial(
-            fused_vesselness_tensor, z_slab=_auto_z_slab(tuple(u.shape), config.pipeline_z_slab),
-            hessian_mode=config.hessian_mode, pipeline_dtype=config.pipeline_dtype,
-            use_kernels=config.use_kernels)
-    else:
-        pipeline = _mesh_pipeline(tuple(u.shape), mesh, config, args)
+            require_mesh(mesh)
+            device = mesh.device if device is None else device
+        device = resolve_device(device)
+        if dtype is None:
+            dtype = torch.float64 if device.type == "cpu" else torch.float32
+        dtype = torch_dtype(dtype)
+        if spacing is None:
+            spacing = (1.0,) * 3
+        spacing = tuple(float(h) for h in spacing)
+        if isinstance(image, torch.Tensor):
+            u = image.to(device=device, dtype=dtype)
+        else:
+            u = torch.as_tensor(np.asarray(image), dtype=dtype, device=device)
+        u = u.contiguous()
+        mad_cfg = config.mad_config()
+        args = (tuple(config.scales), spacing, config.alpha, config.beta, config.gamma,
+                config.epsilon, config.omega, config.sensitivity)
+        if mesh is None:
+            pipeline = functools.partial(
+                fused_vesselness_tensor,
+                z_slab=_auto_z_slab(tuple(u.shape), config.pipeline_z_slab),
+                hessian_mode=config.hessian_mode, pipeline_dtype=config.pipeline_dtype,
+                use_kernels=config.use_kernels)
+        else:
+            pipeline = _mesh_pipeline(tuple(u.shape), mesh, config, args)
 
-    resp = tensor = diffusion = None
-    for it in range(config.iterations):
-        if it and mesh is not None:
-            from ..parallel.sharding import gather_field
+        resp = tensor = diffusion = None
+        for it in range(config.iterations):
+            if it and mesh is not None:
+                from ..parallel.sharding import gather_field
 
-            u = gather_field(u, mesh)
-        # with a mesh the outputs are whole on every rank: the solve's setup
-        # runs replicated, from the whole tensor
-        resp, tensor = pipeline(u, *args)
-        diffusion = mad_diffusion(u, tensor, spacing=spacing, config=mad_cfg,
-                                  dtype=dtype, device=device, mesh=mesh,
-                                  min_local=min_local)
-        u = diffusion.output
-    if mesh is not None:
-        from ..parallel.sharding import output_block
+                u = gather_field(u, mesh)
+            # with a mesh the outputs are whole on every rank: the solve's setup
+            # runs replicated, from the whole tensor
+            with span(VED_PIPELINE):
+                resp, tensor = pipeline(u, *args)
+            diffusion = mad_diffusion(u, tensor, spacing=spacing, config=mad_cfg,
+                                      dtype=dtype, device=device, mesh=mesh,
+                                      min_local=min_local)
+            u = diffusion.output
+        if mesh is not None:
+            from ..parallel.sharding import output_block
 
-        shape, whole = tuple(resp.shape), (None,) * 3
-        resp = output_block(resp, mesh, shape, whole, shape)
-        tensor = output_block(tensor, mesh, shape, whole, shape)
-    return VEDResult(output=u, vesselness=resp, tensor=tensor, diffusion=diffusion)
+            shape, whole = tuple(resp.shape), (None,) * 3
+            resp = output_block(resp, mesh, shape, whole, shape)
+            tensor = output_block(tensor, mesh, shape, whole, shape)
+        return VEDResult(output=u, vesselness=resp, tensor=tensor, diffusion=diffusion)
 
 
 def _mesh_pipeline(shape, mesh, config: VEDConfig, args):

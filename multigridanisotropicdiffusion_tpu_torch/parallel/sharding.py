@@ -39,6 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import EXCHANGE, GATHER, span
+
 #: Below this many points per axis per rank, stop splitting that axis.
 DEFAULT_MIN_LOCAL = 8
 
@@ -297,7 +299,7 @@ def exchange_faces(mesh: GridMesh, d: int, to_lo: torch.Tensor | None,
     global layout, so every send meets its receive.  All of it one
     ``batch_isend_irecv``, waited on before returning (a ``madt.exchange``
     range in a profiler trace)."""
-    with torch.profiler.record_function("madt.exchange"):
+    with span(EXCHANGE):
         return _exchange(mesh.neighbour(d, -1), mesh.neighbour(d, 1), to_lo, to_hi,
                          from_lo_shape, from_hi_shape, dtype, device)
 
@@ -403,7 +405,7 @@ def exchange_halo_shell(x: torch.Tensor, mesh: GridMesh, spec: Spec,
         return HaloShell(x, tuple(radii), {})
     slabs = {d: (x.narrow(d, 0, radii[d]), x.narrow(d, shape[d] - radii[d], radii[d]))
              for d in dims}
-    with torch.profiler.record_function("madt.exchange"):
+    with span(EXCHANGE):
         if x.device.type != "cuda":
             return HaloShell(x, tuple(radii), _shell(slabs, mesh, radii, shape, x.dtype,
                                                      x.device, False))
@@ -499,7 +501,7 @@ def _all_gather(t: torch.Tensor, group) -> list:
     """Every rank's ``t`` (equal shapes) along ``group``, in group order;
     moved as bytes, so any dtype goes through any backend (a
     ``madt.gather`` range in a profiler trace)."""
-    with torch.profiler.record_function("madt.gather"):
+    with span(GATHER):
         staged = _staged(t.device)
         flat = t.contiguous().reshape(-1).view(torch.uint8)
         if staged:

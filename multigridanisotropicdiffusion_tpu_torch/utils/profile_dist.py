@@ -34,7 +34,7 @@ import time
 
 import torch
 
-from .profile_ved import _device_us
+from .profiling import EXCHANGE, GATHER, PREFIX, device_us
 
 SHAPE = (512, 512, 512)
 GROUPS = {
@@ -78,7 +78,7 @@ def _overlap_us(trace_path: str, frags) -> tuple:
 
     kernels = spans(lambda e: e.get("cat") == "kernel" and any(f in e["name"] for f in frags))
     exchange = spans(lambda e: e.get("cat") == "user_annotation"
-                     and e.get("name") == "madt.exchange")
+                     and e.get("name") == EXCHANGE)
     runtime = spans(lambda e: e.get("cat") in ("cuda_runtime", "cuda_driver"))
     free = cut(exchange, runtime)
     # host calls inside the exchange ranges, by name (nested calls each
@@ -135,18 +135,18 @@ def _rank(rank, world, store, out, cards, backend):
         events = prof.key_averages()
         # the madt.* ranges also carry a device-side span (first to last
         # device operation inside them): reported below, not summed here
-        kernels = [e for e in events if _device_us(e) > 0 and not e.key.startswith("madt.")
+        kernels = [e for e in events if device_us(e) > 0 and not e.key.startswith(PREFIX)
                    and e.device_type == torch.autograd.DeviceType.CUDA]
-        device = sum(_device_us(e) for e in kernels) / 1e6
+        device = sum(device_us(e) for e in kernels) / 1e6
         lines.append(f"rank 0 of {world} ({backend}, {cards} card(s)), 512^3 "
                      f"MADConfig.cuda(): {int(res.num_cycles[0])} "
                      f"cycles, wall {wall:.4f} s, its kernels {device:.4f} s "
                      f"({device / wall:.1%} of the wall)")
-        for name in ("madt.exchange", "madt.gather"):
+        for name in (EXCHANGE, GATHER):
             ev = [e for e in events if e.key == name]
             host_ev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CPU]
             host = sum(e.cpu_time_total for e in host_ev) / 1e6
-            span = sum(_device_us(e) for e in ev if e not in host_ev) / 1e6
+            span = sum(device_us(e) for e in ev if e not in host_ev) / 1e6
             lines.append(f"  {name}: {sum(e.count for e in host_ev)} calls, {host:.4f} s "
                          f"host ({host / wall:.1%} of the wall), device-side span {span:.4f} s")
         lines.append(f"  B14 device time {b14 / 1e3:.2f} ms; inside madt.exchange host ranges "
@@ -160,15 +160,15 @@ def _rank(rank, world, store, out, cards, backend):
         for e in kernels:
             group = next((g for g, frags in GROUPS.items()
                           if any(f in e.key for f in frags)), "other")
-            grouped[group] += _device_us(e) / 1e6
+            grouped[group] += device_us(e) / 1e6
         for g, s in grouped.items():
             lines.append(f"  {g}: {s * 1e3:.2f} ms, {s / max(device, 1e-12):.1%} of its "
                          "device time")
         launches = sum(e.count for e in kernels)
         lines.append(f"  {launches} device operations; the largest:")
         lines.append(f"  {'device ms':>10} {'share':>6} {'calls':>6}  kernel")
-        for e in sorted(kernels, key=_device_us, reverse=True)[:15]:
-            lines.append(f"  {_device_us(e) / 1e3:10.3f} {_device_us(e) / 1e6 / device:6.1%} "
+        for e in sorted(kernels, key=device_us, reverse=True)[:15]:
+            lines.append(f"  {device_us(e) / 1e3:10.3f} {device_us(e) / 1e6 / device:6.1%} "
                          f"{e.count:6d}  {e.key[:100]}")
         with open(out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -6,9 +6,11 @@ For each configuration below, builds the hierarchy on ``chip_smoke.py``'s
 seeded inputs (per cell ``G G^T + 2 I`` with G normal, b uniform in [0,
 255)), runs one warm-up solve, then one solve on that hierarchy under
 ``torch.profiler``, and prints the wall time, the device time (the sum of
-the kernels' times; one stream), the device's idle share and the device
-time by kernel, grouped by the port's kernels.  The card's name and power
-limit come first.  Needs a CUDA device.
+the kernels' times), the port's spans (``utils.profiling``: calls, host ms,
+self device span ms each) and the device time by kernel, grouped by the
+port's kernels (the benchmark's ``device.idle_pct``, ``bench_port/``, is the
+idle share).  The card's name and power limit come first.  Needs a CUDA
+device.
 
 * the 512^3 solve to 1e-6, ``MADConfig.cuda()`` (compressed DCA levels,
   the main path);
@@ -25,7 +27,7 @@ import time
 
 import torch
 
-from .profile_ved import _device_us
+from .profiling import PREFIX, device_us, span_table
 
 CASES = (
     ("dca 512^3", (512, 512, 512), {}),
@@ -79,26 +81,27 @@ def main() -> int:
             res = mad_diffusion(b, t, config=cfg, device="cuda", hierarchy=hier)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA]
-        device = sum(_device_us(e) for e in kernels) / 1e6
+        kernels = [e for e in prof.key_averages() if device_us(e) > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(PREFIX)]
+        device = sum(device_us(e) for e in kernels) / 1e6
         if device == 0:
             print("the profiler saw no device time: time with CUDA events instead",
                   file=sys.stderr)
             return 1
         print(f"{title}, MADConfig.cuda({kw}): {int(res.num_cycles[0])} cycles, wall "
-              f"{wall:.4f} s, device {device:.4f} s, device idle "
-              f"{max(0.0, 1 - device / wall):.1%}")
+              f"{wall:.4f} s, device {device:.4f} s")
+        print("\n".join(span_table(prof)))
         grouped = {g: 0.0 for g in (*GROUPS, "other")}
         for e in kernels:
             group = next((g for g, frags in GROUPS.items()
                           if any(f in e.key for f in frags)), "other")
-            grouped[group] += _device_us(e) / 1e6
+            grouped[group] += device_us(e) / 1e6
         for g, s in grouped.items():
             print(f"  {g}: {s * 1e3:.2f} ms, {s / device:.1%} of device time")
         print(f"  {'device ms':>10} {'share':>6} {'calls':>6}  kernel")
-        for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
-            print(f"  {_device_us(e) / 1e3:10.3f} {_device_us(e) / 1e6 / device:6.1%} "
+        for e in sorted(kernels, key=device_us, reverse=True)[:12]:
+            print(f"  {device_us(e) / 1e3:10.3f} {device_us(e) / 1e6 / device:6.1%} "
                   f"{e.count:6d}  {e.key[:90]}")
         del t, b, hier, res, prof
         torch.cuda.empty_cache()

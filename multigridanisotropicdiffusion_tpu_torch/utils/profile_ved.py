@@ -7,10 +7,12 @@ reference-faithful ``gaussian_derivative``, runs ``ved(vol,
 config=VEDConfig.cuda(hessian_mode=...), device="cuda")`` on the seeded
 512^3 tube phantom (``utils.phantom``) once to warm up, then once under
 ``torch.profiler``, and prints the card's name and power limit, the wall
-time, the device time (the sum of the kernels' times; one stream, so they
-do not overlap), the device's idle share, and the device time by kernel,
-grouped into the vesselness pipeline, the diffusion solves and the rest.
-Needs a CUDA device.
+time, the device time (the sum of the kernels' times), the port's spans
+(``utils.profiling``: calls, host ms, self device span ms each), and the
+device time by kernel, grouped into the vesselness pipeline, the diffusion
+solves and the rest.  The benchmark's ``device.idle_pct`` (``bench_port/``)
+is the idle share: the union of the device's intervals, which a sum over
+kernels over-reads once streams overlap.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import sys
 import time
 
 import torch
+
+from .profiling import PREFIX, device_us, span_table
 
 SHAPE = (512, 512, 512)
 #: the convolution kernels (B6, B7, B10) all start so; each is also summed
@@ -33,13 +37,6 @@ GROUPS = {
     "solve (B1-B5)": ("Compressed<", "stencil_kernel", "restrict_kernel", "prolong_kernel",
                       "assemble_kernel"),
 }
-
-
-def _device_us(event) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, name):
-            return float(getattr(event, name))
-    return 0.0
 
 
 def main() -> int:
@@ -72,21 +69,22 @@ def profile_one(vol, cfg, ved) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(_device_us(e) for e in kernels) / 1e6
+    kernels = [e for e in prof.key_averages() if device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(PREFIX)]
+    device = sum(device_us(e) for e in kernels) / 1e6
     if device == 0:
         print("the profiler saw no device time: time with CUDA events instead",
               file=sys.stderr)
         return 1
     print(f"VED {SHAPE} float32, VEDConfig.cuda(hessian_mode={cfg.hessian_mode!r}): "
-          f"wall {wall:.4f} s, device "
-          f"{device:.4f} s, device idle {max(0.0, 1 - device / wall):.1%}")
+          f"wall {wall:.4f} s, device {device:.4f} s")
+    print("\n".join(span_table(prof)))
     grouped = {g: 0.0 for g in (*GROUPS, "other")}
     for e in kernels:
         group = next((g for g, frags in GROUPS.items()
                       if any(f in e.key for f in frags)), "other")
-        grouped[group] += _device_us(e) / 1e6
+        grouped[group] += device_us(e) / 1e6
     for g, s in grouped.items():
         print(f"  {g}: {s * 1e3:.2f} ms, {s / device:.1%} of device time")
     families = {}
@@ -95,11 +93,11 @@ def profile_one(vol, cfg, ved) -> int:
         if fam:
             families.setdefault(fam.group(0), []).append(e)
     for fam, hits in sorted(families.items()):
-        print(f"  {fam}: {sum(_device_us(e) for e in hits) / 1e3:.2f} ms in "
+        print(f"  {fam}: {sum(device_us(e) for e in hits) / 1e3:.2f} ms in "
               f"{sum(e.count for e in hits)} launches")
     print(f"  {'device ms':>10} {'share':>6} {'calls':>6}  kernel")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:20]:
-        print(f"  {_device_us(e) / 1e3:10.3f} {_device_us(e) / 1e6 / device:6.1%} "
+    for e in sorted(kernels, key=device_us, reverse=True)[:20]:
+        print(f"  {device_us(e) / 1e3:10.3f} {device_us(e) / 1e6 / device:6.1%} "
               f"{e.count:6d}  {e.key[:90]}")
     return 0
 
