@@ -16,7 +16,10 @@ Phases, one line or more each; any failure exits non-zero:
    kernels on a tube phantom: 512^3 float32 and bfloat16 storage with
    sigma = 2 taps (r = 8), an odd (37, 45, 51) volume, and r = 32 (sigma = 2
    at z spacing 0.25) on a small volume; B8 in its first and select
-   variants.  Median times by CUDA events (a call under 2 ms is timed in
+   variants; B15 in its first and select variants on the phantom's
+   gaussian_derivative Hessian stacks (sigma 1.245, then 2) at 512^3 and at
+   the main path's 64-plane slab, float32 and bfloat16, held to its plain
+   version's bits (response and best Hessian), and on (37, 45, 51).  Median times by CUDA events (a call under 2 ms is timed in
    bursts of 10 back-to-back calls, so the wrappers' host time overlaps the
    card's work), beside the library call that
    computes the same function where there is one: on the all-cell levels
@@ -55,9 +58,10 @@ Phases, one line or more each; any failure exits non-zero:
    Galerkin levels, each against ``use_kernels=False``;
 9. reference-faithful VED: phase 6's 512^3 phantom through
    ``VEDMultigridImageFilter(device="cuda").set_config(VEDConfig.cuda(
-   hessian_mode="gaussian_derivative"))`` (B6 and B10 in every Hessian), with
-   the conv_z / conv_y / conv_x launch counts read from that run (120 / 240 /
-   240), the phase-6 convergence and tube checks, and the same filter with
+   hessian_mode="gaussian_derivative"))`` (B6 and B10 in every Hessian, B15
+   on it, B9 once a slab), with the conv_z / conv_y / conv_x /
+   hessian_vesselness / tensor_assembly launch counts read from that run
+   (120 / 240 / 240 / 40 / 8), the phase-6 convergence and tube checks, and the same filter with
    ``use_kernels=False`` within 1e-4 relative L2; warm pipeline and warm
    solve seconds apart; then ``hessian(vol, 2.0, mode="smooth_fd",
    use_kernels=True)``, which must launch B11 once and match its plain path;
@@ -111,18 +115,21 @@ and stored operators and on a (1531, 997) grid.  B12 and B13's stored
 form are held to their plain versions' bytes, the shard-local stored form
 with ``torch.equal``.
 
-The line before the last is ``{"kernels": [...]}``, 20 rows (name, route, source, the
+The line before the last is ``{"kernels": [...]}``, 21 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
 function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
 float32 at the shape in the row; ``conv_z`` also gives the main path's 82 ->
 66 plane slab as ``slab``, whose bytes count the 70 input planes that
 sigma 0.3's non-zero taps reach and whose library call is one
-``F.conv3d``); the last line is ``{"ok": true, "device":
+``F.conv3d``; ``hessian_vesselness`` (B15, which replaces no TPU kernel:
+"none: XLA") gives its first scale as ``first_ms`` and its four cases on
+a 64-plane slab, first and select in float32 and bfloat16, as ``slab``);
+the last line is ``{"ok": true, "device":
 {...}}``.
 
 Tolerances: B1/B2, B3 (the restriction), the prolongation's add form, B6,
-B10, B12 and B13's stored form bit for bit, B14 with ``torch.equal``; otherwise float32 max |kernel - plain| <= 1e-5 max |plain| (the
+B10, B12, B13's stored form and B15 bit for bit, B14 with ``torch.equal``; otherwise float32 max |kernel - plain| <= 1e-5 max |plain| (the
 sums may run in another order); bfloat16 |kernel - plain| <= one bf16 ulp of each plain
 value (both compute in float32 and round once), with the float32 bound as a
 floor for values near zero, where cancellation makes the float32 sums
@@ -175,8 +182,14 @@ MATH_OPS = {"expf": 11, "acosf": 33, "cosf": 29, "sqrtf": 6, "rcp": 5, "div": 11
 OPS_FD_EIGEN = (112 + 2 * MATH_OPS["rcp"] + 2 * MATH_OPS["sqrtf"] + MATH_OPS["acosf"]
                 + MATH_OPS["cosf"])
 OPS_VESSELNESS = 23 + 2 * MATH_OPS["rcp"] + 4 * MATH_OPS["expf"] + 3 * MATH_OPS["div"]
-#: phase 9's expected B6/B10 launches: 8 z slabs x 5 scales x (3 z, 6 y, 6 x)
-GD_LAUNCHES = {"conv_z": 120, "conv_y": 240, "conv_x": 240}
+#: B15's: B8's without the FD stencil (24 per voxel), and with a product by
+#: a reciprocal for each of the vesselness's three divisions
+OPS_HV_EIGEN = OPS_FD_EIGEN - 24
+OPS_HV_VESSELNESS = OPS_VESSELNESS - 3 * MATH_OPS["div"] + 3
+#: phase 9's expected launches: 8 z slabs x 5 scales x (3 z, 6 y, 6 x; B15),
+#: 8 z slabs x B9
+GD_LAUNCHES = {"conv_z": 120, "conv_y": 240, "conv_x": 240, "hessian_vesselness": 40,
+               "tensor_assembly": 8}
 KERNELS = {
     # name: (source, replaced Pallas kernel, phase-3 case reported[, its
     # tag when not the 512^3 level])
@@ -224,6 +237,11 @@ KERNELS = {
         "multigridanisotropicdiffusion_tpu_torch/csrc/vesselness.cu",
         "multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py:217",
         "tensor_assembly f32",
+    ),
+    "hessian_vesselness": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/vesselness.cu",
+        "none: XLA",
+        "hessian_vesselness select f32",
     ),
     "stencil_stored_halfsweep": (
         "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_stored.cu",
@@ -286,7 +304,8 @@ STENCIL_3D = ("stencil_halfsweep", "stencil_residual", "restrict3d", "prolong3d"
               "assemble_compressed")
 VED_KERNELS = STENCIL_3D + ("conv_z", "conv_yx", "fd_vesselness", "tensor_assembly")
 #: the kernels of the gaussian_derivative VED call
-GD_KERNELS = STENCIL_3D + ("conv_z", "conv_y", "conv_x")
+GD_KERNELS = STENCIL_3D + ("conv_z", "conv_y", "conv_x", "hessian_vesselness",
+                           "tensor_assembly")
 #: B12/B13 cases reported beside the row's own (phase-3 tags)
 EXTRA_CASES = {
     "stencil_stored_halfsweep": ("512^3 stored DCA", "256^3 exact", "128^3 exact",
@@ -886,6 +905,89 @@ def check_ved_kernels(tag, u, spacing, errs, timings, work, timed_runs):
     torch.cuda.empty_cache()
 
 
+#: phase 3's tag of B15's cases on one z slab of the 512^3 VED call
+HV_SLAB = "64-plane slab"
+
+
+def check_hv_kernels(tag, u, spacing, errs, timings, work, timed_runs):
+    """B15 on the gaussian_derivative Hessian stacks of one volume ``u``
+    (storage dtype, B6/B10 as the main path computes them): first scale
+    (sigma 1.245) and select (sigma 2, into the first scale's best), each
+    held to ``hessian_vesselness_plain``'s bits, response and best Hessian;
+    with ``timed_runs`` also on the stacks' first 64 planes (one z slab of
+    the main path, tagged HV_SLAB), with CUDA-event medians and the bytes
+    and operations of each call."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch.models.ved import vesselness_measure
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_vesselness
+    from multigridanisotropicdiffusion_tpu_torch.ops.eigen3 import eigvalsh3, sort_by_abs3
+    from multigridanisotropicdiffusion_tpu_torch.ops.hessian import hessian
+
+    def hv(h, best=None):
+        # measure_fn is what the wrapper runs on a CPU tensor; the kernel has
+        # the formula compiled in
+        return cuda_vesselness.hessian_vesselness(h, PARAMS, best,
+                                                  measure_fn=vesselness_measure)
+
+    def plain(h, best=None):
+        return cuda_vesselness.hessian_vesselness_plain(h, PARAMS, best, vesselness_measure)
+
+    def bright(h):
+        """Voxels whose two largest-magnitude eigenvalues are negative: those
+        whose vesselness B15 computes."""
+        lam = sort_by_abs3(eigvalsh3(h.float()))
+        return int(((lam[1] < 0) & (lam[2] < 0)).sum())
+
+    h1, h2 = (hessian(u, s, spacing, mode="gaussian_derivative", use_kernels=True)
+              for s in (1.245, 2.0))
+    item = u.element_size()
+    resp_item = 4  # the response is float32 for float32 and bf16 storage
+    for planes, case_tag in ((None, tag),) + (((64, HV_SLAB),) if timed_runs else ()):
+        a, b = (h1, h2) if planes is None else (h1[:, :planes].clone(),
+                                                 h2[:, :planes].clone())
+        suffix, key, record = recorder(case_tag, u, timings, timed_runs)
+        n = a[0].numel()
+        first = hv(a.clone())
+        want = plain(a)
+        errs[key("hessian_vesselness first")] = max(
+            check_bits(f"hessian_vesselness first {suffix} {case_tag} resp", first[0], want[0]),
+            check_bits(f"hessian_vesselness first {suffix} {case_tag} h", first[1], want[1]))
+        record("hessian_vesselness first", lambda: hv(a), lambda: plain(a))
+        bright1 = bright(a) if timed_runs else 0
+        work[key("hessian_vesselness first")] = (n * (6 * item + resp_item),
+                                                 OPS_HV_EIGEN * n + OPS_HV_VESSELNESS * bright1)
+        incoming = (first[0].clone(), first[1].clone())
+        want = plain(b, incoming)
+        got = hv(b, first)
+        errs[key("hessian_vesselness select")] = max(
+            check_bits(f"hessian_vesselness select {suffix} {case_tag} resp", got[0], want[0]),
+            check_bits(f"hessian_vesselness select {suffix} {case_tag} h", got[1], want[1]))
+        if got[0].data_ptr() != first[0].data_ptr() or got[1].data_ptr() != first[1].data_ptr():
+            fail(f"hessian_vesselness select {suffix} {case_tag} did not update its best in place")
+        winners = int((want[0] > incoming[0]).sum())
+        del got, want
+
+        def restore():
+            first[0].copy_(incoming[0])
+            first[1].copy_(incoming[1])
+
+        record("hessian_vesselness select", lambda: hv(b, first), lambda: plain(b, incoming),
+               setup=restore)
+        # in place: read h and the best response, write the winners' 7 values
+        bright2 = bright(b) if timed_runs else 0
+        work[key("hessian_vesselness select")] = (
+            n * (6 * item + resp_item) + winners * (resp_item + 6 * item),
+            (OPS_HV_EIGEN + 1) * n + OPS_HV_VESSELNESS * bright2)
+        if timed_runs:
+            log(f"    hessian_vesselness select {suffix} {case_tag}: {winners} of {n} voxels "
+                f"win; bright: {bright1} of {n} (first scale), {bright2} (select scale)")
+        del a, b, first, incoming
+    del h1, h2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def fd_weights(facs, dtype):
     """The six central-difference stencils of ``fd_planes``, scaled by
     ``facs``, as a ``(6, 1, 3, 3, 3)`` conv3d weight (offset d at index
@@ -1077,6 +1179,9 @@ def phase_kernels(gen):
     log("  gaussian_derivative and smooth_fd Hessian kernels (B10, B11)")
     for dtype in (torch.float32, torch.bfloat16):
         check_axis_kernels("512^3", vol.to(dtype), (1.0,) * 3, errs, timings, work, True)
+    log("  gaussian_derivative vesselness and select (B15)")
+    for dtype in (torch.float32, torch.bfloat16):
+        check_hv_kernels("512^3", vol.to(dtype), (1.0,) * 3, errs, timings, work, True)
     del vol
     small = tube_phantom((37, 45, 51), gen)
     for dtype in (torch.float32, torch.bfloat16):
@@ -1084,6 +1189,8 @@ def phase_kernels(gen):
                           timings, work, False)
         check_axis_kernels("(37, 45, 51)", small.to(dtype), (1.0, 0.9, 1.1), errs,
                            timings, work, False)
+        check_hv_kernels("(37, 45, 51)", small.to(dtype), (1.0, 0.9, 1.1), errs,
+                         timings, work, False)
     # sigma = 16: r = 64, the cap, on every axis
     check_axis_kernels("(12, 150, 150) r=64", tube_phantom((12, 150, 150), gen),
                        (1.0,) * 3, errs, timings, work, False, sigma=16.0)
@@ -1404,6 +1511,7 @@ def all_counters():
         "conv_z": cuda_conv.conv_z,
         "conv_yx": cuda_conv.conv_yx,
         "fd_vesselness": cuda_vesselness.fd_vesselness,
+        "hessian_vesselness": cuda_vesselness.hessian_vesselness,
         "tensor_assembly": cuda_vesselness.tensor_assembly,
         "stencil_stored_halfsweep": cuda_stencil_stored.halfsweep,
         "stencil_stored_residual": cuda_stencil_stored.cuda_residual,
@@ -2001,7 +2109,7 @@ def main():
     launches.update({k: n for k, n in launches_2d.items() if k.startswith("stencil_2d")})
     gen = torch.Generator(device="cuda").manual_seed(0)
     launches.update({k: n for k, n in phase_ved_gd(gen).items()
-                     if k in ("conv_y", "conv_x", "fd_hessian")})
+                     if k in ("conv_y", "conv_x", "fd_hessian", "hessian_vesselness")})
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernel_less = phase_kernel_less(gen)
     dist_launches, dist_solves = phase_distributed()
@@ -2038,10 +2146,18 @@ def main():
             row["slab"] = dict(zip(("ms", "plain_ms", "library_ms"), timings[slab]),
                                case=slab[1], bound_ms=bound_ms(*work[slab])[0],
                                max_abs_err=errs[slab])
-        if name == "fd_vesselness":
-            first = "fd_vesselness first f32"
+        if name in ("fd_vesselness", "hessian_vesselness"):
+            first = f"{name} first f32"
             row["first_ms"], row["first_plain_ms"], _ = timings[(first, "512^3")]
             row["first_bound_ms"] = bound_ms(*work[(first, "512^3")])[0]
+        if name == "hessian_vesselness":
+            # the main path's launches: one 64-plane z slab of the 512^3 VED call
+            for variant in ("first", "select"):
+                for dt in ("f32", "bf16"):
+                    slab = (f"{name} {variant} {dt}", HV_SLAB)
+                    row.setdefault("slab", {"case": HV_SLAB})[f"{variant} {dt}"] = dict(
+                        zip(("ms", "plain_ms"), timings[slab][:2]),
+                        bound_ms=bound_ms(*work[slab])[0], max_abs_err=errs[slab])
         bf16 = (case.replace("f32", "bf16"), tag)
         if bf16 in timings:
             # the solve kernels move the same values in half the bytes

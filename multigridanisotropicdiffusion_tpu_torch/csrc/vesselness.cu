@@ -1,14 +1,21 @@
 // The VED vesselness pipeline's per-voxel kernels: the fused finite-
 // difference Hessian + eigenvalues + vesselness + running best-select (B8),
-// the final diffusion-tensor assembly (B9), and the standalone finite-
-// difference Hessian of hessian(mode='smooth_fd') (B11).
+// the final diffusion-tensor assembly (B9), the standalone finite-
+// difference Hessian of hessian(mode='smooth_fd') (B11), and the
+// eigenvalues + vesselness + running best-select of a given Hessian stack
+// (B15, the gaussian_derivative pipeline's per-scale step).
 //
 // Replace the Pallas kernels `_fdv_kernel` (built by `_build_fdv`) and
 // `_assembly_kernel` (built by `_build_assembly`) in
 // multigridanisotropicdiffusion_tpu/ops/pallas_vesselness.py, and `_fd_kernel`
 // (built by `_build_fd`) in multigridanisotropicdiffusion_tpu/ops/
 // pallas_conv.py.  B8 and B11 share one FD stencil (`fd_stencil`), as the
-// Pallas kernels share `_fd_plane_blocks`.  The formulas
+// Pallas kernels share `_fd_plane_blocks`.  B15 replaces no Pallas kernel:
+// the JAX package leaves the gaussian_derivative pipeline's eigensolves to
+// XLA, which fuses them, where PyTorch would run them as ~90 eager
+// elementwise passes over whole planes per scale; it is B8 without its FD
+// stencil, and B8 and B15 share one copy of the per-voxel eigenvalues and
+// response (`sorted_eigenvalues`, `response`) and of the plane stores.  The formulas
 // are those of models/ved.py (`vesselness_measure`, `_make_assemble_fn`) and
 // ops/eigen3.py (`eigh3`), written out here; the TPU's polynomial arccos is
 // replaced by acos.
@@ -26,6 +33,12 @@
 // win is neither read (its Hessian) nor written.
 // B11, per output voxel: h as in B8, each plane rounded to the storage type
 //   into a (6, Z, Y, X) stack.
+// B15, per voxel of a (6, Z, Y, X) Hessian stack h in the storage type:
+//   resp = vesselness(sort_by_abs(eigenvalues(h widened to the compute
+//          type))), as models/ved.py's generic per-scale body computes it;
+//   first scale:  best_resp <- resp (the caller adopts h itself as the best
+//                 Hessian: nothing is copied);
+//   later scales: where resp > best_resp, best <- (resp, h), in place.
 // B9, per voxel: q3 = the eigenvector of the largest eigenvalue of h,
 //   v = max(resp, 0)^(1/sensitivity), T = d1 I + (d3 - d1) q3 q3^T with
 //   d1 = 1 + (eps - 1) v, d3 - d1 = (omega - eps) v; the identity where v <= 0.
@@ -67,6 +80,20 @@
 // ~265 operations per voxel).  B9 and B11: one thread per voxel, threads
 // along x (coalesced plane access); B11's 19 reads of us per voxel hit
 // L1/L2, since neighbouring threads share them.
+//
+// B15's bound, 512^3 float32, per scale: the first scale reads 6 planes and
+// writes the response (3.76 GB, 1.12 ms at 3.35 TB/s); a later scale also
+// reads the best response and writes the 7 values of the voxels it wins
+// (~11% on the phantom: ~4.2 GB, ~1.25 ms); B8's operations without its FD
+// stencil and with products for its three divisions, ~0.38 ms at 67
+// TFLOP/s.  Its design: no stencil, so no shared memory and no plane march;
+// the volume is flat, and each thread takes 4 voxels a block's width apart,
+// so that every load and every store of a warp covers 32 consecutive voxels
+// of a plane: whole 32-byte sectors, the winners' stores of a select scale
+// included (runs of 4 consecutive voxels a thread, read as 16-byte vectors,
+// would scatter those stores over partial sectors).  As in B8, a voxel that
+// is not bright skips the vesselness, and a voxel that does not win is
+// neither read (its Hessian) nor written.
 #include "common.cuh"
 
 namespace {
@@ -221,17 +248,36 @@ __device__ __forceinline__ Scaled<A> scaled_eigenvalues(Sym<A> m) {
   return {a, lo, mid, hi, scale_safe};
 }
 
-// The three divisors of the vesselness, 2 alpha^2, 2 beta^2 and 2 gamma^2.
+// The three divisors of the vesselness, 2 alpha^2, 2 beta^2 and 2 gamma^2
+// (B8 divides by them).
 template <typename A>
 struct Divisors {
   A d[3];
 };
+// Their reciprocals, each rounded in the compute type (B15 multiplies by
+// them): PyTorch on the card divides a tensor by a Python number as a
+// product with the number's reciprocal (on the CPU it divides), and B15 is
+// held bit for bit to that eager path.
+template <typename A>
+struct Reciprocals {
+  A r[3];
+};
+
+template <typename A>
+__device__ __forceinline__ Rn<A> over(Rn<A> x, const Divisors<A>& dv, int i) {
+  return x / Rn<A>(dv.d[i]);
+}
+template <typename A>
+__device__ __forceinline__ Rn<A> over(Rn<A> x, const Reciprocals<A>& rc, int i) {
+  return x * Rn<A>(rc.r[i]);
+}
 
 // models/ved.py `vesselness_measure` on |value|-ascending eigenvalues of a
-// bright voxel (l2 < 0 and l3 < 0); any other voxel's response is 0.
-template <typename A>
+// bright voxel (l2 < 0 and l3 < 0); any other voxel's response is 0.  D:
+// Divisors or Reciprocals.
+template <typename A, typename D>
 __device__ __forceinline__ Rn<A> vesselness_bright(Rn<A> l1, Rn<A> l2, Rn<A> l3,
-                                                    const Divisors<A>& dv) {
+                                                    const D& dv) {
   const Rn<A> one = A(1);
   const Rn<A> c = A(1e-5);
   const Rn<A> inv2 = recip(l2);
@@ -241,9 +287,9 @@ __device__ __forceinline__ Rn<A> vesselness_bright(Rn<A> l1, Rn<A> l2, Rn<A> l3,
   const Rn<A> rb2 = (l1 * l1) * abs(inv2 * inv3);
   const Rn<A> s2 = l1 * l1 + l2 * l2 + l3 * l3;
   const Rn<A> smooth = exp(-(Rn<A>(A(2)) * c * c) * abs(inv2) * (inv3 * inv3));
-  const Rn<A> ea = exp(-ra2 / Rn<A>(dv.d[0]));
-  const Rn<A> eb = exp(-rb2 / Rn<A>(dv.d[1]));
-  const Rn<A> eg = exp(-s2 / Rn<A>(dv.d[2]));
+  const Rn<A> ea = exp(over(-ra2, dv, 0));
+  const Rn<A> eb = exp(over(-rb2, dv, 1));
+  const Rn<A> eg = exp(over(-s2, dv, 2));
   return smooth * (one - ea) * eb * (one - eg);
 }
 
@@ -254,6 +300,31 @@ __device__ __forceinline__ void swap_abs(Rn<A>& a, Rn<A>& b) {
     a = b;
     b = t;
   }
+}
+
+// ops/eigen3.py `sort_by_abs3(eigvalsh3(h))` at one voxel of h, and whether
+// the voxel is bright (l2 < 0 and l3 < 0; NaN is not).
+template <typename A>
+struct Sorted {
+  Rn<A> l0, l1, l2;
+  bool bright;
+};
+
+template <typename A>
+__device__ __forceinline__ Sorted<A> sorted_eigenvalues(const Sym<A>& hv) {
+  const Scaled<A> e = scaled_eigenvalues(hv);
+  Rn<A> l0 = e.lo * e.scale, l1 = e.mid * e.scale, l2 = e.hi * e.scale;
+  swap_abs(l0, l1);
+  swap_abs(l1, l2);
+  swap_abs(l0, l1);
+  return {l0, l1, l2, l1.v < A(0) && l2.v < A(0)};
+}
+
+// models/ved.py `vesselness_measure` of sorted eigenvalues: a voxel that is
+// not bright has response 0 without the four exp and the four divisions.
+template <typename A, typename D>
+__device__ __forceinline__ A response(const Sorted<A>& l, const D& dv) {
+  return l.bright ? vesselness_bright(l.l0, l.l1, l.l2, dv).v : A(0);
 }
 
 // The six scaled central second differences (symfield order) of a valid-z
@@ -376,16 +447,10 @@ __global__ void __launch_bounds__(kBX * kBY)
     cm = c0;
     c0 = cp;
 
-    const Scaled<A> e = scaled_eigenvalues(hv);
-    Rn<A> l0 = e.lo * e.scale, l1 = e.mid * e.scale, l2 = e.hi * e.scale;
-    swap_abs(l0, l1);
-    swap_abs(l1, l2);
-    swap_abs(l0, l1);
-    const bool bright = l1.v < A(0) && l2.v < A(0);
-    // a voxel that is not bright has response 0 (no exp, no division)
+    const Sorted<A> l = sorted_eigenvalues(hv);
     const int64_t o = k * plane + static_cast<int64_t>(j) * nx + i;
     if (valid) {
-      const A v = bright ? vesselness_bright(l0, l1, l2, dv).v : A(0);
+      const A v = response(l, dv);
       if (kFirst || v > resp[o]) {
         resp[o] = v;
         store_planes(h, n, o, hv);
@@ -409,6 +474,43 @@ __global__ void __launch_bounds__(kBX * kBY)
   const int64_t plane = ny * nx;
   store_planes(h, nz * plane, k * plane + j * nx + i,
                fd_hessian_at(us, k, j, i, ny, nx, facs));
+}
+
+// B15's voxels per thread, a block's width apart: a warp reads and writes
+// 32 consecutive voxels of a plane.
+constexpr int kVox = 4;
+
+// B15: a block takes kVox runs of kBX * kBY voxels of the flat n-voxel
+// volume; each thread loads its kVox voxels of every plane (and their best
+// response) before it computes any.
+template <typename T, bool kFirst>
+__global__ void __launch_bounds__(kBX * kBY)
+    hessian_vesselness_kernel(const T* __restrict__ h,
+                              typename mad::Compute<T>::type* __restrict__ resp,
+                              T* __restrict__ best_h, int64_t n,
+                              Reciprocals<typename mad::Compute<T>::type> rc) {
+  using A = typename mad::Compute<T>::type;
+  const int64_t o0 = static_cast<int64_t>(blockIdx.x) * (kBX * kBY * kVox) + threadIdx.x;
+  A x[6][kVox], best[kVox];
+#pragma unroll
+  for (int q = 0; q < kVox; ++q) {
+    const int64_t o = o0 + q * (kBX * kBY);
+    const bool in = o < n;
+#pragma unroll
+    for (int p = 0; p < 6; ++p) x[p][q] = in ? mad::load(h + p * n + o) : A(0);
+    if (!kFirst) best[q] = in ? resp[o] : A(0);
+  }
+#pragma unroll
+  for (int q = 0; q < kVox; ++q) {
+    const int64_t o = o0 + q * (kBX * kBY);
+    if (o >= n) break;
+    const Sym<A> hv{x[0][q], x[1][q], x[2][q], x[3][q], x[4][q], x[5][q]};
+    const A r = response(sorted_eigenvalues(hv), rc);
+    if (kFirst || r > best[q]) {  // NaN never wins
+      resp[o] = r;
+      if (!kFirst) store_planes(best_h, n, o, hv);  // the stored values, unchanged
+    }
+  }
 }
 
 // ops/eigen3.py `_candidate`
@@ -512,6 +614,23 @@ int launch_fd_hessian(const void* us, void* h, int64_t nz, int64_t ny,
 }
 
 template <typename T>
+int launch_hessian_vesselness(const void* h, void* resp, void* best_h, int64_t n,
+                              double two_a2, double two_b2, double two_g2, int first,
+                              void* stream) {
+  using A = typename mad::Compute<T>::type;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the divisors rounded to A, then their reciprocals rounded in A, as
+  // PyTorch's eager division by a Python number computes them on the host
+  const Reciprocals<A> rc{{A(1) / A(two_a2), A(1) / A(two_b2), A(1) / A(two_g2)}};
+  auto kernel = first ? hessian_vesselness_kernel<T, true>
+                      : hessian_vesselness_kernel<T, false>;
+  kernel<<<mad::blocks_for(n, kBX * kBY * kVox), kBX * kBY, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(h), static_cast<A*>(resp), static_cast<T*>(best_h), n, rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_tensor_assembly(const void* resp, const void* h, void* out,
                            int64_t n, double inv_sens, double eps_m1,
                            double omega_m_eps, void* stream) {
@@ -541,6 +660,12 @@ int launch_tensor_assembly(const void* resp, const void* h, void* out,
       void* stream) {                                                         \
     const double f[6] = {f00, f01, f02, f11, f12, f22};                       \
     return launch_fd_hessian<T>(us, h, nz, ny, nx, f, stream);                \
+  }                                                                           \
+  extern "C" int mad_hessian_vesselness_##SUF(                                \
+      const void* h, void* resp, void* best_h, int64_t n, double two_a2,      \
+      double two_b2, double two_g2, int first, void* stream) {                \
+    return launch_hessian_vesselness<T>(h, resp, best_h, n, two_a2, two_b2,   \
+                                        two_g2, first, stream);               \
   }                                                                           \
   extern "C" int mad_tensor_assembly_##SUF(                                   \
       const void* resp, const void* h, void* out, int64_t n, double inv_sens, \

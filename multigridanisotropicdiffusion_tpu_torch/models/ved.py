@@ -14,11 +14,12 @@ Counterpart of ``multigridanisotropicdiffusion_tpu.models.ved`` (reference
 With ``use_kernels`` and ``hessian_mode='smooth_fd'`` (``VEDConfig.cuda()``)
 every scale runs B6 (z smoothing) -> B7 (y+x smoothing) -> B8 (FD Hessian,
 eigenvalues, vesselness, running select) and the tensor comes from B9
-(``ops.cuda_conv``, ``ops.cuda_vesselness``); otherwise the generic path
-computes the Hessian planes, the eigenvalues and, once, the full eigenframe.
-In ``gaussian_derivative`` mode with ``use_kernels`` the generic path's
-Hessian runs through B6 (z) and B10 (y, x) and the rest stays plain tensor
-ops, as the JAX package leaves it to XLA.  Tensors are ``(6, *shape)`` stacks in symfield order.
+(``ops.cuda_conv``, ``ops.cuda_vesselness``).  In ``gaussian_derivative``
+mode with ``use_kernels`` every scale's Hessian runs through B6 (z) and B10
+(y, x), then B15 (eigenvalues, vesselness, running select; the JAX package
+leaves that step to XLA), and the tensor comes from B9.  Otherwise the
+generic path computes the Hessian planes, the eigenvalues and, once, the
+full eigenframe.  Tensors are ``(6, *shape)`` stacks in symfield order.
 
 Large volumes are processed in z slabs (``_auto_z_slab``): a Python loop over
 slabs that writes into preallocated outputs.
@@ -245,6 +246,26 @@ def _fused_scales_kernel(u, scales, spacing, alpha, beta, gamma, epsilon,
     return resp, t
 
 
+def _fused_scales_gd_kernel(u, scales, spacing, alpha, beta, gamma, epsilon,
+                            omega, sensitivity, z_valid_radius):
+    """The kernel path of :func:`_fused_scales` (gaussian_derivative): per
+    scale the B6/B10 Hessian, then B15 on it (the first scale's stack becomes
+    the running best, updated in place after), then B9 once."""
+    best = None
+    for sigma in scales:
+        h = hessian(u, sigma, spacing, normalize_across_scale=True,
+                    z_valid_radius=z_valid_radius, mode="gaussian_derivative",
+                    use_kernels=True)
+        best = cuda_vesselness.hessian_vesselness(h, (alpha, beta, gamma), best,
+                                                  measure_fn=vesselness_measure)
+    resp, h = best
+    t = cuda_vesselness.tensor_assembly(
+        resp, h, epsilon, omega, sensitivity,
+        assemble_fn=_make_assemble_fn(epsilon, omega, sensitivity),
+    )
+    return resp, t
+
+
 def _fused_scales(u, scales, spacing, alpha, beta, gamma, epsilon, omega,
                   sensitivity, z_valid_radius, hessian_mode="gaussian_derivative",
                   use_kernels: bool = False):
@@ -254,6 +275,9 @@ def _fused_scales(u, scales, spacing, alpha, beta, gamma, epsilon, omega,
     if hessian_mode == "smooth_fd" and use_kernels and u.dim() == 3:
         return _fused_scales_kernel(u, scales, spacing, alpha, beta, gamma,
                                     epsilon, omega, sensitivity, z_valid_radius)
+    if hessian_mode == "gaussian_derivative" and use_kernels and u.dim() == 3:
+        return _fused_scales_gd_kernel(u, scales, spacing, alpha, beta, gamma,
+                                       epsilon, omega, sensitivity, z_valid_radius)
     math_dtype = compute_dtype(u.dtype)
     best_resp = best_h = None
     for sigma in scales:

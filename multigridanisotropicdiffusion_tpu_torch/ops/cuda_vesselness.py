@@ -1,13 +1,17 @@
 """The VED vesselness pipeline's per-voxel kernels (``csrc/vesselness.cu``):
 the per-scale FD Hessian + eigenvalues + vesselness + running best-select
-(B8), the final tensor assembly (B9), and the standalone FD Hessian of
-``hessian(mode='smooth_fd')`` (B11), which shares B8's FD stencil.
+(B8), the final tensor assembly (B9), the standalone FD Hessian of
+``hessian(mode='smooth_fd')`` (B11), which shares B8's FD stencil, and the
+eigenvalues + vesselness + running best-select of a given Hessian stack
+(B15, the ``gaussian_derivative`` pipeline's per-scale step), which shares
+B8's per-voxel response.
 
 Counterpart of ``multigridanisotropicdiffusion_tpu.ops.pallas_vesselness``
 (``pallas_fd_vesselness``, ``pallas_tensor_assembly``) and of
 ``pallas_fd_hessian`` in ``multigridanisotropicdiffusion_tpu.ops.pallas_conv``,
 with ``acos`` where the TPU kernels use ``acos_poly`` and without their
-shape gates.
+shape gates.  B15 has no Pallas counterpart: the JAX package leaves that
+step to XLA.
 
 The plain versions take the formulas from ``models/ved.py`` as the JAX
 kernels do (``measure_fn``, ``assemble_fn``), so each formula has one source
@@ -16,8 +20,9 @@ in Python; the CUDA kernels carry the same formulas in C++.
 The running best is ``(resp, h)``: the response ``(Z, Y, X)`` in the compute
 dtype (float32 for float32 and bf16 storage, float64 for float64) and the
 winning Hessian ``(6, Z, Y, X)`` in the storage dtype.  :func:`fd_vesselness`
-updates it IN PLACE on every device (the select is pointwise, so the kernel
-can) and returns it.  ``fd_vesselness.launches``,
+and :func:`hessian_vesselness` update it IN PLACE on every device (the
+select is pointwise, so the kernels can) and return it.
+``fd_vesselness.launches``, ``hessian_vesselness.launches``,
 ``tensor_assembly.launches`` and ``fd_hessian.launches`` count kernel
 launches.
 """
@@ -52,6 +57,21 @@ def fd_vesselness_plain(us: torch.Tensor, facs, params, best: Best | None,
     return torch.where(better, resp, best_resp), torch.where(better, h_store, best_h)
 
 
+def hessian_vesselness_plain(h: torch.Tensor, params, best: Best | None,
+                             measure_fn) -> Best:
+    """Plain version of the B15 kernel, as new tensors: ``models.ved``'s
+    generic per-scale body.  ``h``: a ``(6, Z, Y, X)`` Hessian stack in its
+    storage dtype, whose eigenvalues are taken in the compute dtype;
+    ``params``: ``(alpha, beta, gamma)``; ``best``: the running best or
+    ``None`` on the first scale, which initializes it with ``h`` itself."""
+    resp = measure_fn(sort_by_abs3(eigvalsh3(h.to(compute_dtype(h.dtype)))), *params)
+    if best is None:
+        return resp, h
+    best_resp, best_h = best
+    better = resp > best_resp
+    return torch.where(better, resp, best_resp), torch.where(better, h, best_h)
+
+
 def fd_hessian_plain(us: torch.Tensor, facs) -> torch.Tensor:
     """Plain version of the B11 kernel: the six FD planes of the valid-z
     smoothed field ``(Z + 2, Y, X)``, rounded to its storage dtype."""
@@ -78,18 +98,34 @@ def _fd_output_shape(name: str, us: torch.Tensor) -> Tuple[int, ...]:
     return shape
 
 
+def _check_best(name: str, best: Best, ref: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    """Raise unless ``best`` is a CUDA running best of ``shape`` for the
+    kernel input ``ref`` (its storage dtype and device)."""
+    resp, h = best
+    require_cuda(name, h, ref)
+    require_cuda(name, resp)
+    if tuple(resp.shape) != shape or tuple(h.shape) != (6, *shape):
+        raise ValueError(f"{name}: best {tuple(resp.shape)} / "
+                         f"{tuple(h.shape)} does not match {shape}")
+    if resp.dtype != compute_dtype(ref.dtype) or resp.device != ref.device:
+        raise TypeError(f"{name}: best response is {resp.dtype} on "
+                        f"{resp.device}, expected {compute_dtype(ref.dtype)}")
+
+
+def _in_place(best: Best | None, new: Best) -> Best:
+    """A plain version's new running best, written into ``best`` where there
+    is one, as the kernels update it."""
+    if best is None:
+        return new
+    best[0].copy_(new[0])
+    best[1].copy_(new[1])
+    return best
+
+
 def _check_fdv(us: torch.Tensor, best: Best | None) -> Tuple[int, ...]:
     shape = _fd_output_shape("fd_vesselness", us)
     if best is not None:
-        resp, h = best
-        require_cuda("fd_vesselness", h, us)
-        require_cuda("fd_vesselness", resp)
-        if tuple(resp.shape) != shape or tuple(h.shape) != (6, *shape):
-            raise ValueError(f"fd_vesselness: best {tuple(resp.shape)} / "
-                             f"{tuple(h.shape)} does not match {shape}")
-        if resp.dtype != compute_dtype(us.dtype) or resp.device != us.device:
-            raise TypeError(f"fd_vesselness: best response is {resp.dtype} on "
-                            f"{resp.device}, expected {compute_dtype(us.dtype)}")
+        _check_best("fd_vesselness", best, us, shape)
     return shape
 
 
@@ -102,12 +138,7 @@ def fd_vesselness(us: torch.Tensor, facs, params, best: Best | None = None,
     if us.device.type == "cpu":
         if measure_fn is None:
             raise ValueError("fd_vesselness: the plain version needs measure_fn")
-        resp, h = fd_vesselness_plain(us, facs, params, best, measure_fn)
-        if best is None:
-            return resp, h
-        best[0].copy_(resp)
-        best[1].copy_(h)
-        return best
+        return _in_place(best, fd_vesselness_plain(us, facs, params, best, measure_fn))
     shape = _check_fdv(us, best)
     first = best is None
     if first:
@@ -125,6 +156,52 @@ def fd_vesselness(us: torch.Tensor, facs, params, best: Best | None = None,
 
 
 fd_vesselness.launches = 0
+
+
+def _check_hv(h: torch.Tensor, best: Best | None) -> Tuple[int, ...]:
+    require_cuda("hessian_vesselness", h)
+    if h.dim() < 2 or h.shape[0] != 6:
+        raise ValueError(f"hessian_vesselness: needs a (6, Z, Y, X) Hessian stack, got "
+                         f"{tuple(h.shape)}")
+    shape = tuple(h.shape[1:])
+    if best is not None:
+        _check_best("hessian_vesselness", best, h, shape)
+        if best[1].data_ptr() == h.data_ptr():
+            raise ValueError("hessian_vesselness: the best Hessian is the input stack")
+    return shape
+
+
+def hessian_vesselness(h: torch.Tensor, params, best: Best | None = None,
+                       measure_fn=None) -> Best:
+    """One scale of the ``gaussian_derivative`` pipeline on its Hessian
+    stack ``h`` ``(6, Z, Y, X)``: returns the running best, updated in place
+    on later scales; on the first scale the response is new and ``h`` itself
+    becomes the best Hessian (no copy), so later scales write into it.
+    ``measure_fn`` (``models.ved.vesselness_measure``) is what the plain
+    version runs on a CPU tensor; the kernel has the formula compiled in,
+    with its three divisions by Python numbers taken as products with their
+    reciprocals, as PyTorch computes them on the card: the kernel is its
+    plain version there bit for bit."""
+    if h.device.type == "cpu":
+        if measure_fn is None:
+            raise ValueError("hessian_vesselness: the plain version needs measure_fn")
+        return _in_place(best, hessian_vesselness_plain(h, params, best, measure_fn))
+    shape = _check_hv(h, best)
+    first = best is None
+    if first:
+        best = (torch.empty(shape, dtype=compute_dtype(h.dtype), device=h.device), h)
+    alpha, beta, gamma = (float(p) for p in params)
+    err = kernel("mad_hessian_vesselness", h.dtype)(
+        h.data_ptr(), best[0].data_ptr(), best[1].data_ptr(), best[0].numel(),
+        2.0 * alpha * alpha, 2.0 * beta * beta, 2.0 * gamma * gamma, int(first),
+        stream_of(h),
+    )
+    check_launch(err, "hessian_vesselness")
+    hessian_vesselness.launches += 1
+    return best
+
+
+hessian_vesselness.launches = 0
 
 
 def tensor_assembly(resp: torch.Tensor, h: torch.Tensor, epsilon: float,

@@ -11,8 +11,9 @@ same ranks (rank r holds slab r):
    borders (the single-device pipeline pads the volume with ``mode='edge'``):
    nothing is exchanged,
 2. the port's slab function (``models.ved._fused_scales``: B6 -> B7 -> B8 per
-   scale, then B9, for ``smooth_fd`` with the kernels; B6/B10 Hessians for
-   ``gaussian_derivative``) runs on the extended slab in valid-z mode,
+   scale, then B9, for ``smooth_fd`` with the kernels; B6/B10 Hessians ->
+   B15 per scale, then B9, for ``gaussian_derivative``) runs on the extended
+   slab in valid-z mode,
 3. one all-gather assembles the response and the six tensor planes on every
    rank: the solve's setup runs replicated, from the whole tensor.
 

@@ -1,7 +1,8 @@
 """Time the transfer kernels (B3, B4), the Gaussian z pass (B6), the fused
 y+x Gaussian (B7), the fused FD Hessian + vesselness + select (B8), the
 single-axis Gaussian-derivative passes (B10), the standalone FD Hessian
-(B11), the compressed-operator stencil (B1/B2, and B14's shard-local form)
+(B11), the Hessian stack's vesselness + select (B15), the
+compressed-operator stencil (B1/B2, and B14's shard-local form)
 and the stored-operator stencils (B12, B13's stored form) at the main path's
 shapes, on one CUDA card.
 
@@ -34,6 +35,11 @@ Cases, float32 and bfloat16 storage, inputs made on the device from seed 0:
   included) and on their first 66 planes (one VED z slab of 64 planes, the
   shape the main path's 40 launches have);
 * ``fd_hessian``: B11 on the sigma 2 field;
+* ``hessian_vesselness``: B15's first scale (sigma 1.245) and a select
+  scale (sigma 2, against the first scale's best, restored before each
+  call) on the 512^3 phantom's ``gaussian_derivative`` Hessian stacks (B6
+  and B10, valid z) and on their first 64 planes (one VED z slab, the shape
+  the main path's 40 launches have), where the package has B15;
 * ``fill_``: a plain write of a 512^3 field, what the card's memory takes
   for the bytes the prolongation writes (a yardstick, not a kernel of the
   package);
@@ -57,11 +63,11 @@ Each case is first held against its plain version (float32 within 1e-5 of
 max|plain|, bf16 within one bf16 ulp of each value, floored at that; B8's
 select: the response only, since a near-tie may flip a decision; the add
 form bit for bit ``x + cuda_prolong(e)``), and ``equal`` says whether the
-output is bit for bit the plain version's (B1/B2, B6, B10, B12 and B13's
-stored form must be: a case of theirs that is not fails, and is still timed;
+output is bit for bit the plain version's (B1/B2, B6, B10, B12, B13's
+stored form and B15 must be: a case of theirs that is not fails, and is still timed;
 the shard-local forms must be ``torch.equal``, the sign of an exact zero
 aside).
-``sha256`` is a hash of the output's bytes (B8: the response, then the six
+``sha256`` is a hash of the output's bytes (B8, B15: the response, then the six
 planes), so that two trees' outputs can be compared. Then, unless
 ``--check-only``, the median of 20 CUDA-event timings of 10 back-to-back
 calls each (per call) after a warm-up (B8's select: one call per timing,
@@ -73,7 +79,8 @@ TB/s; B6 reads only the planes that its non-zero taps reach; the stencils
 (K + 3) values per cell, K = 10 for the compressed operator). Before the B8 cases, a line per VED scale gives the
 share of the 514-plane phantom field's voxels that are bright (the two
 largest-magnitude eigenvalues negative: the voxels whose vesselness is not
-0), counted from the plain eigenvalues. Prints the card's name and power
+0), counted from the plain eigenvalues (before the B15 cases, the same for
+its two Hessian stacks). Prints the card's name and power
 limit, one line per case, and a last line ``{"cases": [...]}``.  Exits 1 if a check fails or there is no card.
 
 The script imports only what every version of the package since the
@@ -199,6 +206,7 @@ def main(argv=None) -> int:
         fd_factors,
         fd_planes,
         gaussian_kernels_1d,
+        hessian,
         kernel_radius,
         smoothed_field_valid_z,
     )
@@ -310,6 +318,54 @@ def main(argv=None) -> int:
             del a, b
             torch.cuda.empty_cache()
         del us1, us2
+        torch.cuda.empty_cache()
+
+    hv = getattr(cuda_vesselness, "hessian_vesselness", None)
+
+    def hv_cases(dtype):
+        """B15 first and select on the 512^3 gaussian_derivative Hessian
+        stacks and a 64-plane slab of them; the bright share of each stack
+        (float32 only)."""
+        item = torch.finfo(dtype).bits // 8
+        hz = kernel_radius(2.0, 1.0)
+        u = ved_vol[radius - hz:radius + 512 + hz].to(dtype)
+        h1, h2 = (hessian(u, sigma, one, z_valid_radius=hz, mode="gaussian_derivative",
+                          use_kernels=True) for sigma in (1.245, 2.0))
+        del u
+        if dtype == torch.float32:
+            for sigma, h in ((1.245, h1), (2.0, h2)):
+                lam = sort_by_abs3(eigvalsh3(h))
+                share = ((lam[1] < 0) & (lam[2] < 0)).double().mean().item()
+                del lam
+                print(json.dumps({"bright_share": share, "sigma": sigma,
+                                  "hessian": "gaussian_derivative",
+                                  "shape": list(h.shape[1:])}), flush=True)
+        for planes in (512, 64):
+            a, b = h1[:, :planes].clone(), h2[:, :planes].clone()
+            n = a[0].numel()
+            tag = f"{planes} planes"
+            want = cuda_vesselness.hessian_vesselness_plain(a, PARAMS, None,
+                                                            vesselness_measure)[0]
+            case(f"hessian_vesselness first {tag}", dtype, lambda: hv(a, PARAMS), want,
+                 n * (6 * item + 4), parts=lambda g: g, bitwise=True)
+            best = hv(a, PARAMS)  # adopts a: the select scale writes into it
+            incoming = (best[0].clone(), best[1].clone())
+            want = cuda_vesselness.hessian_vesselness_plain(b, PARAMS, incoming,
+                                                            vesselness_measure)[0]
+            winners = int((want > incoming[0]).sum())
+
+            def restore():
+                best[0].copy_(incoming[0])
+                best[1].copy_(incoming[1])
+
+            case(f"hessian_vesselness select {tag}", dtype, lambda: hv(b, PARAMS, best),
+                 want, n * (6 * item + 4) + winners * (4 + 6 * item), setup=restore,
+                 parts=lambda g: g, bitwise=True)
+            print(json.dumps({"select_winners": winners, "of": n, "case": f"B15 {tag}",
+                              "dtype": str(dtype).replace("torch.", "")}), flush=True)
+            del a, b, want, best, incoming
+            torch.cuda.empty_cache()
+        del h1, h2
         torch.cuda.empty_cache()
 
     transfers = ("restrict3d", "prolong3d", "correction", "fill_", "conv_yx")
@@ -496,6 +552,9 @@ def main(argv=None) -> int:
     for dtype in (torch.float32, torch.bfloat16):
         if wanted("fd_"):
             fd_cases(dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        if hv is not None and wanted("hessian_vesselness"):
+            hv_cases(dtype)
     print(json.dumps({"cases": cases}))
     if failed:
         print(f"FAILED against the plain versions: {failed}", file=sys.stderr)

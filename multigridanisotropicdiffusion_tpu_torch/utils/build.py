@@ -88,6 +88,8 @@ SIGNATURES = {
     + (ctypes.c_int, _STREAM),
     # us, h, nz, ny, nx, facs (6), stream
     "mad_fd_hessian": (_P, _P, _I, _I, _I) + (_D,) * 6 + (_STREAM,),
+    # h, resp, best h, voxels, 2 alpha^2, 2 beta^2, 2 gamma^2, first, stream
+    "mad_hessian_vesselness": (_P, _P, _P, _I, _D, _D, _D, ctypes.c_int, _STREAM),
     # resp, h, out, voxels, 1/sensitivity, epsilon - 1, omega - epsilon, stream
     "mad_tensor_assembly": (_P, _P, _P, _I, _D, _D, _D, _STREAM),
     # planes, x, b, out, nz, ny, nx, host tap plan (K - 1, 8) int32

@@ -32,8 +32,9 @@ SHAPE = (512, 512, 512)
 CONV_PREFIX = "conv_"
 #: kernel-name fragments of each group
 GROUPS = {
-    "pipeline kernels (B6-B11)": (CONV_PREFIX, "fd_vesselness_kernel",
-                                  "tensor_assembly_kernel", "fd_hessian_kernel"),
+    "pipeline kernels (B6-B11, B15)": (CONV_PREFIX, "fd_vesselness_kernel",
+                                       "tensor_assembly_kernel", "fd_hessian_kernel",
+                                       "hessian_vesselness_kernel"),
     "solve (B1-B5)": ("Compressed<", "stencil_kernel", "restrict_kernel", "prolong_kernel",
                       "assemble_kernel"),
 }

@@ -42,10 +42,12 @@ def test_ctypes_signatures_match_the_c_entry_points():
 
 
 @pytest.mark.parametrize("name,source", [("mad_conv_y", "conv.cu"), ("mad_conv_x", "conv.cu"),
-                                         ("mad_fd_hessian", "vesselness.cu")])
+                                         ("mad_fd_hessian", "vesselness.cu"),
+                                         ("mad_hessian_vesselness", "vesselness.cu")])
 def test_the_b10_b11_entry_points_are_declared(name, source):
-    """The per-axis convolutions (B10) and the standalone FD Hessian (B11):
-    declared in their sources and given ctypes argument lists."""
+    """The per-axis convolutions (B10), the standalone FD Hessian (B11) and
+    the Hessian stack's eigenvalues, vesselness and select (B15): declared in
+    their sources and given ctypes argument lists."""
     text = (build.CSRC_DIR / source).read_text()
     assert f'extern "C" int {name}_##SUF(' in text
     assert _entry_points()[name] == list(build.SIGNATURES[name])

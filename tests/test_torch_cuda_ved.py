@@ -1,5 +1,5 @@
-"""The VED kernels (B6-B11) against their plain PyTorch versions on the card,
-and the VED pipeline through them.
+"""The VED kernels (B6-B11, B15) against their plain PyTorch versions on the
+card, and the VED pipeline through them.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_ved.py`` runs
@@ -372,10 +372,68 @@ def test_nan_eigenvalues_in_the_select(device):
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6, equal_nan=True)
 
 
+def _gd_hessian(shape, sigma, device, dtype, seed):
+    """The gaussian_derivative Hessian stack of ``_volume`` through B6/B10,
+    in the storage dtype."""
+    return hessian(_volume(shape, device, seed, dtype), sigma, (1.0, 0.9, 1.1),
+                   mode="gaussian_derivative", use_kernels=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(16, 16, 128), (5, 7, 9), (9, 13, 35)])
+def test_hessian_vesselness_matches_plain_bit_for_bit(device, shape, dtype):
+    """B15 against its plain version (the generic pipeline's per-scale
+    body), bit for bit: the first scale (a new response; the input stack
+    adopted as the best Hessian) and a select scale (the running best
+    updated in place), on a volume of whole blocks (32768 voxels, 1024 a
+    block: kVox = 4 runs of 256 threads) and on volumes that are not: 315
+    voxels (one block, its second run partial, its last two empty) and 4095
+    (the last block's last run one voxel short)."""
+    h1 = _gd_hessian(shape, 1.245, device, dtype, 3)
+    h2 = _gd_hessian(shape, 2.0, device, dtype, 4)
+    first = cuda_vesselness.hessian_vesselness(h1, PARAMS)
+    assert first[1] is h1  # adopted, not copied
+    want = cuda_vesselness.hessian_vesselness_plain(h1, PARAMS, None, vesselness_measure)
+    assert torch.equal(first[0], want[0]) and first[0].dtype == want[0].dtype
+    assert bool((want[0] > 0).any())
+    incoming = (first[0].clone(), first[1].clone())
+    ptrs = (first[0].data_ptr(), first[1].data_ptr())
+    got = cuda_vesselness.hessian_vesselness(h2, PARAMS, first)
+    assert (got[0].data_ptr(), got[1].data_ptr()) == ptrs  # updated in place
+    want = cuda_vesselness.hessian_vesselness_plain(h2, PARAMS, incoming,
+                                                    vesselness_measure)
+    assert bool((want[0] > incoming[0]).any())  # the select takes some voxels
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+def test_hessian_vesselness_nan_eigenvalues_in_the_select(device):
+    """B15 on a stack whose voxel (1, 3, 5) is -I plus a 1e-18 off-diagonal
+    entry, the Hessian of ``_nan_hessian_input`` (NaN eigenvalues in
+    float32): not bright, so response 0, in the first scale and in a select
+    scale on either side, as the plain version decides."""
+    nan_h = torch.zeros((6, 4, 8, 32), device=device)
+    nan_h[[0, 3, 5], 1, 3, 5] = -1.0
+    nan_h[1, 1, 3, 5] = 1e-18
+    assert bool(torch.isnan(eigvalsh3(nan_h)[:, 1, 3, 5]).all())
+    other = _gd_hessian((4, 8, 32), 1.0, device, torch.float32, 5)
+    for a, b in ((other, nan_h), (nan_h, other)):
+        start = cuda_vesselness.hessian_vesselness(a.clone(), PARAMS)
+        want = cuda_vesselness.hessian_vesselness_plain(a, PARAMS, None, vesselness_measure)
+        assert torch.equal(start[0], want[0])
+        incoming = (start[0].clone(), start[1].clone())
+        got = cuda_vesselness.hessian_vesselness(b, PARAMS, start)
+        want = cuda_vesselness.hessian_vesselness_plain(b, PARAMS, incoming,
+                                                        vesselness_measure)
+        assert float(got[0][1, 3, 5]) == float(want[0][1, 3, 5])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_gaussian_derivative_through_kernels(device):
     """The reference-faithful Hessian launches B6 (3 shared z passes) and
     B10 (6 y and 6 x passes) per scale, the standalone smooth_fd Hessian
-    B11 once; both match their plain paths, and so does the whole VED."""
+    B11 once; both match their plain paths, and so does the whole VED, whose
+    pipeline launches B15 once per slab and scale and B9 once per slab."""
     u = _volume((24, 20, 18), device)
     for f in GD_COUNTERS + (cuda_vesselness.fd_hessian,):
         f.launches = 0
@@ -389,12 +447,15 @@ def test_gaussian_derivative_through_kernels(device):
     vol = _volume((32, 36, 33), device)
     kw = dict(scales=(0.775, 2.0), diffusion_iterations=2, pipeline_z_slab=8,
               hessian_mode="gaussian_derivative")
-    for f in GD_COUNTERS:
+    counters = GD_COUNTERS + (cuda_vesselness.hessian_vesselness,
+                              cuda_vesselness.tensor_assembly)
+    for f in counters:
         f.launches = 0
     res = ved(vol, config=VEDConfig.cuda(**kw), device=device)
-    # 4 slabs x 2 scales x (3 z, 6 y, 6 x)
-    assert [f.launches for f in GD_COUNTERS] == [24, 48, 48]
+    # 4 slabs x 2 scales x (3 z, 6 y, 6 x; B15), 4 slabs x B9
+    assert [f.launches for f in counters] == [24, 48, 48, 8, 4]
     ref = ved(vol, config=VEDConfig.cuda(use_kernels=False, **kw), device=device)
+    assert [f.launches for f in counters] == [24, 48, 48, 8, 4]
     for r in (res, ref):
         assert bool((r.diffusion.final_residual <= 1e-6).all())
     rel = ((res.output - ref.output).norm() / ref.output.norm()).item()
@@ -405,10 +466,11 @@ def test_ved_through_kernels_matches_plain(device):
     vol = _volume((40, 36, 33), device)
     kw = dict(scales=(0.775, 1.245, 2.0), diffusion_iterations=2,
               pipeline_z_slab=8)
-    for f in COUNTERS:
+    for f in COUNTERS + (cuda_vesselness.hessian_vesselness,):
         f.launches = 0
     res = ved(vol, config=VEDConfig.cuda(**kw), device=device)
     assert all(f.launches > 0 for f in COUNTERS)
+    assert cuda_vesselness.hessian_vesselness.launches == 0  # smooth_fd keeps B8
     ref = ved(vol, config=VEDConfig.cuda(use_kernels=False, **kw), device=device)
     for r in (res, ref):
         assert bool((r.diffusion.final_residual <= 1e-6).all())

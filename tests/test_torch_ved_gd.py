@@ -1,12 +1,13 @@
 """Port parity, the reference-faithful VED: ``ved`` in
 ``hessian_mode='gaussian_derivative'`` with ``use_kernels=True`` on the CPU
-(the B6/B10 wrappers' plain versions, the prefix-shared Hessian, then plain
-eigensolves, select and tensor) against the JAX ``ved`` with
-``VEDConfig.tpu(hessian_mode='gaussian_derivative')``, untiled and in z
-slabs of 8, in float64.
+(the B6/B10 wrappers' plain versions, the prefix-shared Hessian, then B15's
+and B9's plain versions: eigensolves, select and tensor) against the JAX
+``ved`` with ``VEDConfig.tpu(hessian_mode='gaussian_derivative')``, untiled
+and in z slabs of 8, in float64.
 
-Both sides compute the full eigenframe of the winning Hessian here (the
-generic pipeline path), so the tensors agree to rounding; tolerances as in
+The JAX side computes the full eigenframe of the winning Hessian (its
+generic pipeline path), the port B9's rank-1 form; the two tensors agree to
+rounding wherever the top eigenvalue is simple.  Tolerances as in
 ``tests/test_torch_ved.py``: output 1e-9 relative L2, vesselness 1e-10,
 tensor 1e-9 absolute."""
 
@@ -16,7 +17,8 @@ import torch
 
 from multigridanisotropicdiffusion_tpu.models import ved as jved
 from multigridanisotropicdiffusion_tpu_torch import VEDConfig, ved
-from multigridanisotropicdiffusion_tpu_torch.ops import cuda_conv
+from multigridanisotropicdiffusion_tpu_torch.models.ved import _fused_scales
+from multigridanisotropicdiffusion_tpu_torch.ops import cuda_conv, cuda_vesselness
 from multigridanisotropicdiffusion_tpu_torch.utils.convert import ved_config_from_jax
 
 SCALES = (1.0, 2.0)
@@ -73,3 +75,22 @@ def test_gaussian_derivative_bf16_pipeline_matches_jax():
     assert res.vesselness.dtype == torch.float32
     assert np.abs(res.vesselness.numpy() - np.asarray(jres.vesselness)).max() <= 1e-5
     assert _rel_l2(res.output, jres.output) <= 1e-6
+
+
+def test_kernel_path_matches_the_generic_body(monkeypatch):
+    """``use_kernels=True`` takes the B15 path (on the CPU B15's plain
+    version, the generic path's per-scale body, then B9's rank-1 tensor):
+    the generic path's response bit for bit, its tensor to float64
+    rounding."""
+    calls = []
+    wrapped = cuda_vesselness.hessian_vesselness
+    monkeypatch.setattr(cuda_vesselness, "hessian_vesselness",
+                        lambda *a, **k: calls.append(1) or wrapped(*a, **k))
+    u = torch.as_tensor(_phantom((10, 12, 9), seed=2))
+    args = (SCALES, SPACING, 0.5, 0.5, 5.0, 0.01, 5.0, 10.0, None, "gaussian_derivative")
+    resp, t = _fused_scales(u, *args, use_kernels=True)
+    assert len(calls) == len(SCALES)
+    want_resp, want_t = _fused_scales(u, *args, use_kernels=False)
+    assert len(calls) == len(SCALES)
+    assert torch.equal(resp, want_resp) and float(resp.max()) > 0.1
+    assert t.shape == want_t.shape and float((t - want_t).abs().max()) <= 1e-13

@@ -116,6 +116,8 @@ def test_wrappers_need_the_formulas_on_the_cpu():
         cuda_vesselness.fd_vesselness(us, fd_factors(1.0, SPACING), PARAMS)
     with pytest.raises(ValueError, match="assemble_fn"):
         cuda_vesselness.tensor_assembly(us[0], torch.zeros((6, 4, 5)), *TENSOR)
+    with pytest.raises(ValueError, match="measure_fn"):
+        cuda_vesselness.hessian_vesselness(torch.zeros((6, 3, 4, 5)), PARAMS)
 
 
 def test_vesselness_formulas_match_jax():
