@@ -61,8 +61,8 @@ from ..ops.matfree import MatrixFreeDCAOperator
 from ..ops.smoothers import DEFAULT_JACOBI_WEIGHT, make_residual, make_smoother
 from ..ops.transfer import prolong, prolong_add, restrict, restrict_tensor
 from ..utils.profiling import (MAD, MAD_ASSEMBLE, MAD_CAST, MAD_COARSE, MAD_CYCLE_HI,
-                               MAD_CYCLE_LO, MAD_RESIDUAL, MAD_RESTRICT, MAD_SETUP,
-                               MAD_STEP, MAD_SYNC, span)
+                               MAD_CYCLE_LO, MAD_GALERKIN, MAD_RESIDUAL, MAD_RESTRICT,
+                               MAD_SETUP, MAD_STEP, MAD_SYNC, span)
 
 VCYCLE = "vcycle"
 FMG = "fmg"
@@ -218,7 +218,7 @@ def build_hierarchy(
         # (ops.galerkin.assemble_galerkin_parabolic)
         collapse = galerkin_variant == "collapsed"
         for lvl in levels[1:]:
-            with span(MAD_ASSEMBLE):
+            with span(MAD_GALERKIN):
                 ops.append(assemble_galerkin_parabolic(ops[-1], lvl.centering,
                                                        collapse=collapse))
     elif coarse_operator == DCA:

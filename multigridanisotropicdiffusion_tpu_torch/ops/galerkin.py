@@ -18,8 +18,9 @@ overlap, so one ``restrict(apply(prolong(comb)))`` recovers one entry of
 every row exactly, ``w_phase[J] = A_c[J, O]`` with ``O`` the offset in
 ``[-r, r]`` for which ``J + O`` has that phase.  Out-of-range couplings meet
 no comb point, so border rows come out right with no special cases.  The
-probes run in batches of :data:`PROBE_BATCH` along a leading axis (the JAX
-package maps them with ``lax.map``), through the plain transfers.  A
+probes run in batches of :data:`PROBE_BATCH` (more on small grids,
+:data:`PROBE_BATCH_VOXELS`) along a leading axis (the JAX package maps them
+with ``lax.map``), through the plain transfers.  A
 matrix-free fine operator has no planes: it is always probed, through its
 own ``apply``.
 """
@@ -27,6 +28,7 @@ own ``apply``.
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Sequence
 
 import torch
@@ -35,11 +37,16 @@ import torch.nn.functional as F
 from ..core.grids import CELL
 from ..core.stencil import StencilOperator, stencil_offsets
 from .compressed import CompressedDCAOperator
+from .galerkin_direct import assemble_galerkin_direct, device_index
 from .matfree import MatrixFreeDCAOperator
 from .transfer import coarse_size, prolong_plain, restrict_plain
 
 #: probes per batch: bounds the probe memory at batch * fine volume.
 PROBE_BATCH = 16
+
+#: a batch takes more probes while they hold under this many fine voxels
+#: together: on small grids the launches cost more than the bytes.
+PROBE_BATCH_VOXELS = 1 << 22
 
 #: fine grids of at least this many voxels use the closed-form assembly
 #: under method='auto' (probing costs prod(2r+1) fine-grid applies).
@@ -266,8 +273,6 @@ def assemble_galerkin(fine_op, centering: Sequence[str],
     if _resolve_method(fine_op, method) == "direct":
         if matfree:
             raise TypeError("the matrix-free operator has no plane form: it is probed")
-        from .galerkin_direct import assemble_galerkin_direct
-
         return assemble_galerkin_direct(fine_offsets, get, tuple(centering),
                                         offsets, radii)
 
@@ -281,41 +286,40 @@ def assemble_galerkin(fine_op, centering: Sequence[str],
         def apply(v):
             return _contract_batched(fine_offsets, planes, v)
     moduli = tuple(2 * r + 1 for r in radii)
-    coords = [
-        torch.arange(s, device=device).reshape([-1 if d == i else 1 for i in range(ndim)])
-        for d, s in enumerate(coarse_shape)
-    ]
-    phases = list(itertools.product(*[range(m) for m in moduli]))
+    strides = tuple(math.prod(moduli[d + 1:]) for d in range(ndim))
+    # per axis, entry o + r: the part of phase(J + o) that J's index along
+    # that axis adds, shaped to broadcast over the others
+    shifts = [(((torch.arange(s, device=device) + torch.arange(-r, r + 1, device=device)[:, None])
+                % m) * stride).reshape([2 * r + 1] + [-1 if d == i else 1 for i in range(ndim)])
+              for d, (s, r, m, stride) in enumerate(zip(coarse_shape, radii, moduli, strides))]
+
+    def phases_of(offs):
+        """``(len(offs), *coarse_shape)``: the phase of ``J + off`` at every
+        coarse point ``J``, for each offset of ``offs``."""
+        idx = None
+        for d in range(ndim):
+            rows = device_index(tuple(off[d] + radii[d] for off in offs), device)
+            term = shifts[d].index_select(0, rows)
+            idx = term if idx is None else idx + term
+        return idx.expand(len(offs), *coarse_shape)
 
     # one probe per phase, in batches along a leading axis: each batch reads
-    # the fine planes once for up to probe_batch probes
+    # the fine planes once for its probes
+    own = phases_of([(0,) * ndim])[0]
+    phases = math.prod(moduli)
+    batch = max(probe_batch, PROBE_BATCH_VOXELS // math.prod(fine_shape))
     w_parts = []
-    for start in range(0, len(phases), probe_batch):
-        batch = phases[start:start + probe_batch]
-        combs = []
-        for phase in batch:
-            comb = None
-            for d in range(ndim):
-                hit = (coords[d] % moduli[d]) == phase[d]
-                comb = hit if comb is None else comb & hit
-            combs.append(comb.expand(coarse_shape))
-        v = torch.stack(combs).to(dtype)
+    for start in range(0, phases, batch):
+        ids = torch.arange(start, min(start + batch, phases), device=device)
+        v = (own == ids.reshape((-1,) + (1,) * ndim)).to(dtype)
         w_parts.append(restrict_plain(apply(prolong_plain(v, centering)), centering))
     w_stack = torch.cat(w_parts)  # (prod(m), *coarse_shape)
 
-    # gather planes: plane_O[J] = W[phase(J + O)][J]
-    strides = []
-    acc = 1
-    for m in reversed(moduli):
-        strides.append(acc)
-        acc *= m
-    strides = tuple(reversed(strides))
+    # gather planes, as many at once as a probe batch holds voxels:
+    # plane_O[J] = W[phase(J + O)][J]
     coeffs = torch.empty((len(offsets), *coarse_shape), dtype=dtype, device=device)
-    for k, off in enumerate(offsets):
-        idx = None
-        for d in range(ndim):
-            term = ((coords[d] + off[d]) % moduli[d]) * strides[d]
-            idx = term if idx is None else idx + term
-        idx = idx.expand(coarse_shape)
-        coeffs[k] = torch.gather(w_stack, 0, idx[None])[0]
+    per = max(1, PROBE_BATCH_VOXELS // math.prod(coarse_shape))
+    for start in range(0, len(offsets), per):
+        offs = offsets[start:start + per]
+        torch.gather(w_stack, 0, phases_of(offs), out=coeffs[start:start + len(offs)])
     return StencilOperator(coeffs, offsets)

@@ -26,18 +26,27 @@ Unlike the JAX package, the interiors are always strided slices: its
 ``_interior_conv`` is a TPU code-generation workaround with the same
 arithmetic (only the summation order could differ).  The output planes are
 accumulated in place into one preallocated ``(K, *coarse_shape)`` tensor, so
-each first-axis chunk's intermediates are freed before the next.
+each first-axis chunk's intermediates are freed before the next; fine grids
+of up to :data:`ONE_PASS_VOXELS` take one pass, where the launches cost more
+than the intermediates.  Nothing here waits for the device (index tensors are
+copied there once, :func:`device_index`), so the host's launches run ahead
+of the device's work.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
 
 from ..core.stencil import StencilOperator
 from .transfer import coarse_size, prolong_taps, restrict_taps
+
+#: fine grids of at most this many voxels are assembled in one pass over
+#: every ``O_0``, not chunked by it
+ONE_PASS_VOXELS = 1 << 21
 
 
 def pair_rows(fine_n: int, centering: str, a: int, off: int):
@@ -160,6 +169,15 @@ def apply_banded(x: torch.Tensor, spec: BandedSpec, axis: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=1024)
+def device_index(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``values`` as an index tensor on ``device``, copied there once per
+    device: the blocking copy waits for every operation queued before it,
+    and the host's launches after it could no longer run ahead of the
+    device."""
+    return torch.as_tensor(values, device=device)
+
+
 def _sorted_regroup(cur: torch.Tensor, meta: list, key):
     """Stable-sort the stacked rows by ``key(meta_entry)`` (skipped when
     already grouped)."""
@@ -167,7 +185,7 @@ def _sorted_regroup(cur: torch.Tensor, meta: list, key):
     order = sorted(range(len(meta)), key=lambda i: keys[i])
     if order == list(range(len(meta))):
         return cur, meta
-    return cur[torch.as_tensor(order, device=cur.device)], [meta[i] for i in order]
+    return cur[device_index(tuple(order), cur.device)], [meta[i] for i in order]
 
 
 def _segments(values):
@@ -261,15 +279,19 @@ def assemble_galerkin_direct(
         group_stacks[a_val] = (idxs, stack)
 
     # chunked by the first axis's coarse component O_0: bounds the stacked
-    # intermediates to ~1/(2 r_0 + 1) of the total
-    for o0 in range(-radii[0], radii[0] + 1):
+    # intermediates to ~1/(2 r_0 + 1) of the total; a small fine grid takes
+    # every O_0 in one pass, since there the launches cost more
+    o0s = list(range(-radii[0], radii[0] + 1))
+    chunks = [o0s] if math.prod(fshape) <= ONE_PASS_VOXELS else [[o0] for o0 in o0s]
+    for chunk in chunks:
         arrays, meta = [], []
-        for a_val, (idxs, block) in group_stacks.items():
-            spec = specs[0][(a_val, o0)]
-            if spec is None:
-                continue
-            arrays.append(apply_banded(block, spec, axis=1))
-            meta += [(fine_offsets[k], (o0,)) for k in idxs]
+        for o0 in chunk:
+            for a_val, (idxs, block) in group_stacks.items():
+                spec = specs[0][(a_val, o0)]
+                if spec is None:
+                    continue
+                arrays.append(apply_banded(block, spec, axis=1))
+                meta += [(fine_offsets[k], (o0,)) for k in idxs]
         if not arrays:
             continue
         cur = _cat(arrays)
@@ -283,12 +305,13 @@ def assemble_galerkin_direct(
         if cur is None:
             continue
         # after the last reduction each row is one full-offset plane
-        for i, (_, o_full) in enumerate(meta):
+        for _, o_full in meta:
             if o_full not in index:  # the structural table is a superset
                 raise AssertionError(
                     f"direct Galerkin produced offset {o_full} outside the "
                     "structural table"
                 )
-            coeffs[index[o_full]] += cur[i]
+        rows = device_index(tuple(index[o_full] for _, o_full in meta), device)
+        coeffs.index_add_(0, rows, cur)
         del cur
     return StencilOperator(coeffs, coarse_offsets)

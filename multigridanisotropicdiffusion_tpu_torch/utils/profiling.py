@@ -16,7 +16,8 @@ the CUDA kernels it launched (and, under
 ``torch.autograd.profiler.emit_nvtx()``, becomes an NVTX range for Nsight
 Systems); with no profiler running it costs one flag check.  Per VED call
 (one outer iteration): ``VED`` > ``VED_PIPELINE``, then ``MAD`` >
-``MAD_SETUP`` (> ``MAD_ASSEMBLE`` per level, ``MAD_RESTRICT`` per coarser
+``MAD_SETUP`` (> ``MAD_ASSEMBLE`` for level 0 and each DCA level,
+``MAD_RESTRICT`` per coarser DCA level or ``MAD_GALERKIN`` per Galerkin
 level, ``MAD_COARSE``) and one ``MAD_STEP`` per implicit step (>
 ``MAD_CAST``, and per cycle ``MAD_CYCLE_LO`` or ``MAD_CYCLE_HI``,
 ``MAD_RESIDUAL``, ``MAD_SYNC``).  No span lies inside the V-cycle's level
@@ -41,8 +42,12 @@ VED_PIPELINE = "madt.ved.pipeline"
 MAD = "madt.mad"
 #: the hierarchy's build (and pruning) in ``mad_diffusion``
 MAD_SETUP = "madt.mad.setup"
-#: one level's operator assembly in ``build_hierarchy``
+#: one level's operator assembly in ``build_hierarchy`` (level 0 and every
+#: DCA level)
 MAD_ASSEMBLE = "madt.mad.setup.assemble"
+#: one Galerkin level's product ``I - R (I - A_f) P`` and its collapse in
+#: ``build_hierarchy``
+MAD_GALERKIN = "madt.mad.setup.galerkin"
 #: one tensor restriction in ``build_hierarchy``
 MAD_RESTRICT = "madt.mad.setup.restrict"
 #: the coarsest level's direct solver (its stored operator, the dense LU and

@@ -21,6 +21,7 @@ PARENT = {
     P.MAD_SETUP: P.MAD,
     P.MAD_ASSEMBLE: P.MAD_SETUP,
     P.MAD_RESTRICT: P.MAD_SETUP,
+    P.MAD_GALERKIN: P.MAD_SETUP,
     P.MAD_COARSE: P.MAD_SETUP,
     P.MAD_STEP: P.MAD,
     P.MAD_CAST: P.MAD_STEP,
@@ -67,9 +68,10 @@ def _profiled(fn, path):
     return out, nested
 
 
-def _check_solve(spans, result, shape):
+def _check_solve(spans, result, shape, galerkin=False):
     """Nesting as in ``PARENT``; one assembly per level and one restriction
-    per coarser level; per step, its cycles by precision add up to
+    per coarser level (Galerkin: one assembly, of level 0, and one Galerkin
+    product per coarser level); per step, its cycles by precision add up to
     ``num_cycles``, with one residual and one sync per cycle."""
     for e, p in spans:
         if e.name in PARENT:
@@ -78,7 +80,12 @@ def _check_solve(spans, result, shape):
     counts = collections.Counter(e.name for e, _ in spans)
     levels = len(build_level_descriptors(shape))
     assert counts[P.MAD_SETUP] == 1 and counts[P.MAD_COARSE] == 1
-    assert counts[P.MAD_ASSEMBLE] == levels and counts[P.MAD_RESTRICT] == levels - 1
+    if galerkin:
+        assert counts[P.MAD_ASSEMBLE] == 1 and counts[P.MAD_GALERKIN] == levels - 1
+        assert counts[P.MAD_RESTRICT] == 0
+    else:
+        assert counts[P.MAD_ASSEMBLE] == levels and counts[P.MAD_RESTRICT] == levels - 1
+        assert counts[P.MAD_GALERKIN] == 0
     steps = [e for e, _ in spans if e.name == P.MAD_STEP]
     assert len(steps) == len(result.num_cycles)
     per_step = []
@@ -107,13 +114,27 @@ def test_a_tiny_mad_solve_records_its_layers(tmp_path):
                     defect_dtype="bfloat16", number_of_steps=2)
     res, spans = _profiled(lambda: mad_diffusion(b, tensor, config=cfg, device="cpu"),
                            tmp_path / "trace.json")
-    assert {e.name for e, _ in spans} == set(PARENT) - {P.VED_PIPELINE} | {P.MAD}
+    assert {e.name for e, _ in spans} == set(PARENT) - {P.VED_PIPELINE, P.MAD_GALERKIN} | {P.MAD}
     assert [p for e, p in spans if e.name == P.MAD] == [None]
     per_step = _check_solve(spans, res, b.shape)
     assert [s[P.MAD_CAST] for s in per_step] == [1, 1]  # one cast per implicit step
     # the second step's residual 1.7e-3 opens the full-precision window
     assert sum(s[P.MAD_CYCLE_HI] for s in per_step) >= 1
     assert sum(s[P.MAD_CYCLE_LO] for s in per_step) >= 1
+
+
+def test_a_galerkin_setup_marks_each_coarse_product(tmp_path):
+    b, tensor = _spd_inputs((24, 24, 24), seed=2)
+    cfg = MADConfig(time_step=0.1, tolerance=1e-6, operator_repr="compressed",
+                    defect_dtype="bfloat16", coarse_operator="galerkin",
+                    galerkin_variant="collapsed")
+    res, spans = _profiled(lambda: mad_diffusion(b, tensor, config=cfg, device="cpu"),
+                           tmp_path / "trace.json")
+    assert build_level_descriptors(b.shape)[2:]  # two Galerkin levels at least
+    names = {e.name for e, _ in spans}
+    assert names - set(CYCLES) == set(PARENT) - {P.VED_PIPELINE, P.MAD_RESTRICT, *CYCLES} | {P.MAD}
+    per_step = _check_solve(spans, res, b.shape, galerkin=True)
+    assert [s[P.MAD_CAST] for s in per_step] == [1]
 
 
 def test_the_full_precision_solve_runs_only_hi_cycles(tmp_path):
