@@ -48,7 +48,8 @@ Phases, one line or more each; any failure exits non-zero:
 7. Galerkin main path: ``mad_diffusion`` on phase 5's 512^3 inputs with
    ``MADConfig.cuda(coarse_operator='galerkin')`` (collapsed levels, the
    stored-operator kernel B12 from level 1 down), then
-   ``galerkin_variant='exact'`` (radius-2 levels; at 256^3 if the 512^3
+   ``galerkin_variant='exact'`` (radius-2 levels; the Galerkin product
+   B16 on every coarse level of both; at 256^3 if the 512^3
    setup's peak device memory passes 60 GB), each to 1e-6 in < 100 cycles,
    each with ``use_kernels=False`` (within one cycle, 1e-4 relative L2);
 8. 2D main path: lena from ``tests/goldens/lena_gs_v.npz`` in float64
@@ -115,7 +116,11 @@ and stored operators and on a (1531, 997) grid.  B12 and B13's stored
 form are held to their plain versions' bytes, the shard-local stored form
 with ``torch.equal``.
 
-The line before the last is ``{"kernels": [...]}``, 21 rows (name, route, source, the
+Phase 3 ends with B16, the Galerkin product: levels 1 and 2 of the 512^3
+collapsed chain (the compressed level-0 operator -> 256^3, that level's 27
+planes -> 128^3) against the eager path on the same planes, within 1e-6 of
+the largest diagonal value, both timed.
+The line before the last is ``{"kernels": [...]}``, 22 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
 function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
@@ -190,6 +195,10 @@ OPS_HV_VESSELNESS = OPS_VESSELNESS - 3 * MATH_OPS["div"] + 3
 #: 8 z slabs x B9
 GD_LAUNCHES = {"conv_z": 120, "conv_y": 240, "conv_x": 240, "hessian_vesselness": 40,
                "tensor_assembly": 8}
+#: B16's phase-3 cases: levels 1 and 2 of the 512^3 collapsed chain
+GALERKIN_LEVELS = ("512^3 -> 256^3 collapsed", "256^3 -> 128^3 collapsed")
+#: B16's float32 tolerance, of the largest diagonal value
+GALERKIN_TOL = 1e-6
 KERNELS = {
     # name: (source, replaced Pallas kernel, phase-3 case reported[, its
     # tag when not the 512^3 level])
@@ -298,6 +307,11 @@ KERNELS = {
         "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
         "stored_local_residual f32", "256^3 collapsed block",
     ),
+    "galerkin_product": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/galerkin_product.cu",
+        "none: XLA",
+        "galerkin_product f32", GALERKIN_LEVELS[0],
+    ),
 }
 #: the kernels of the 3D compressed solve and of the VED call
 STENCIL_3D = ("stencil_halfsweep", "stencil_residual", "restrict3d", "prolong3d",
@@ -318,6 +332,7 @@ EXTRA_CASES = {
     "stencil_residual_local": (),
     "stencil_stored_halfsweep_local": (),
     "stencil_stored_residual_local": (),
+    "galerkin_product": GALERKIN_LEVELS[1:],
 }
 #: the shard-local kernel B14 (compressed, and stored through B12)
 LOCAL_KERNELS = ("stencil_halfsweep_local", "stencil_residual_local",
@@ -1155,6 +1170,58 @@ def check_axis_forms(gen, errs, timings, work):
     torch.cuda.empty_cache()
 
 
+def check_galerkin_product(gen, errs, timings, work):
+    """B16 on levels 1 and 2 of the 512^3 collapsed chain (the compressed
+    level-0 operator -> 256^3, then that level's 27 stored planes -> 128^3),
+    against the eager path (``assemble_galerkin_parabolic`` without
+    kernels) on the same planes: max |kernel - eager| <= GALERKIN_TOL times
+    the eager level's largest diagonal value, equal offsets.  Both timed;
+    the bound counts the fine planes read once and the coarse planes
+    written once."""
+    import torch
+
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import CELL
+    from multigridanisotropicdiffusion_tpu_torch.ops import compressed, cuda_galerkin, galerkin
+    from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
+
+    log("  Galerkin product (B16)")
+    t = spd_tensor_field(SHAPE, gen)
+    fine = compressed.assemble_compressed_dca(t, (1.0,) * 3, DT)
+    del t
+    cent = (CELL,) * 3
+    for tag in GALERKIN_LEVELS:
+        got = cuda_galerkin.cuda_galerkin_product(fine, cent, True)
+        want = galerkin.assemble_galerkin_parabolic(fine, cent, collapse=True)
+        if got.offsets != want.offsets or got.coeffs.dtype != want.coeffs.dtype:
+            fail(f"galerkin_product {tag}: offsets or dtype differ from the eager path")
+        err = max((g.double() - w.double()).abs().max().item()
+                  for g, w in zip(got.coeffs, want.coeffs))
+        scale = want.diag.abs().max().item()
+        ok = err <= GALERKIN_TOL * scale and bool(torch.isfinite(got.coeffs).all())
+        log(f"  galerkin_product f32 {tag}: max_abs_err={err:.3e} max|diag|={scale:.3e} "
+            f"tol={GALERKIN_TOL:g} x max|diag| {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"galerkin_product {tag} disagrees with the eager path")
+        key = ("galerkin_product f32", tag)
+        errs[key] = err
+        del got
+        torch.cuda.empty_cache()
+        ms = median_ms(lambda: cuda_galerkin.cuda_galerkin_product(fine, cent, True), 10)
+        plain_ms = median_ms(
+            lambda: galerkin.assemble_galerkin_parabolic(fine, cent, collapse=True), 3)
+        timings[key] = (ms, plain_ms)
+        fine_planes = galerkin.plane_table(fine)[1]
+        nbytes = fine_planes.numel() * 4 + want.coeffs.numel() * 4
+        work[key] = (nbytes, 0, tuple(fine_planes.shape[1:]), "float32")
+        log(f"    galerkin_product f32 {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms(nbytes, 0)[0]:.3f} ms (bytes)")
+        del fine
+        fine = want
+        torch.cuda.empty_cache()
+    del fine
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(gen):
     import torch
 
@@ -1202,6 +1269,7 @@ def phase_kernels(gen):
     torch.cuda.empty_cache()
     check_local(gen, errs, timings, work)
     check_stored_and_2d(gen, errs, timings, work)
+    check_galerkin_product(gen, errs, timings, work)
     return errs, timings, work
 
 
@@ -1495,6 +1563,7 @@ def all_counters():
     from multigridanisotropicdiffusion_tpu_torch.ops import (
         cuda_assemble,
         cuda_conv,
+        cuda_galerkin,
         cuda_smoothers,
         cuda_stencil2d,
         cuda_stencil_stored,
@@ -1524,6 +1593,7 @@ def all_counters():
         "stencil_residual_local": cuda_smoothers.cuda_residual_local,
         "stencil_stored_halfsweep_local": cuda_stencil_stored.halfsweep_local,
         "stencil_stored_residual_local": cuda_stencil_stored.cuda_residual_local,
+        "galerkin_product": cuda_galerkin.cuda_galerkin_product,
     }
 
 
@@ -1625,7 +1695,8 @@ def phase_galerkin(gen):
     tensor = spd_tensor_field(SHAPE, gen)
     b = torch.rand(SHAPE, generator=gen, device="cuda") * 255.0
     kw = dict(time_step=DT, tolerance=1e-6, coarse_operator="galerkin")
-    expect = STENCIL_3D + ("stencil_stored_halfsweep", "stencil_stored_residual")
+    expect = STENCIL_3D + ("stencil_stored_halfsweep", "stencil_stored_residual",
+                           "galerkin_product")
     launches, collapsed = solve_pair("galerkin collapsed 512^3", b, tensor, kw, expect)
     _, exact = solve_pair("galerkin exact 512^3", b, tensor,
                           dict(kw, galerkin_variant="exact"), expect)
@@ -2103,7 +2174,8 @@ def main():
                      if k not in launches})
     gen = torch.Generator(device="cuda").manual_seed(0)
     gal_launches, solves = phase_galerkin(gen)
-    launches.update({k: n for k, n in gal_launches.items() if k.startswith("stencil_stored")})
+    launches.update({k: n for k, n in gal_launches.items()
+                     if k.startswith("stencil_stored") or k == "galerkin_product"})
     gen = torch.Generator(device="cuda").manual_seed(0)
     launches_2d, solves_2d = phase_2d(gen)
     launches.update({k: n for k, n in launches_2d.items() if k.startswith("stencil_2d")})

@@ -16,8 +16,10 @@ Differences from the JAX package:
   to Pallas (``ops.smoothers.has_kernel``: the compressed operator in 2D and
   3D, ``ops.cuda_smoothers``/``ops.cuda_stencil2d``; 3D stored operators of
   radius 1-2, ``ops.cuda_stencil_stored``; 2D stored radius 1), the 3D
-  restriction and prolongation (``ops.cuda_transfer``) and the 3D
-  compressed-operator assembly (``ops.cuda_assemble``).  It stands for the
+  restriction and prolongation (``ops.cuda_transfer``), the 3D
+  compressed-operator assembly (``ops.cuda_assemble``) and the 3D Galerkin
+  product of stored or compressed levels (``ops.cuda_galerkin``, which the
+  JAX package leaves to XLA).  It stands for the
   JAX package's ``use_pallas`` flag *and* its ``default_backend() == "tpu"``
   gates on assembly and transfers.  On a CPU tensor each kernel wrapper
   takes its plain version; on a CUDA tensor it launches the kernel or
@@ -190,8 +192,8 @@ def build_hierarchy(
     ``galerkin_variant`` as in :class:`MADConfig`).  ``operator_repr`` picks
     the stored, compressed or matrix-free form of level 0 and of the DCA
     levels; the coarsest level's stored form feeds the dense LU.  With
-    ``use_kernels``, 3D compressed assembly and the 3D tensor restriction go
-    through their kernels.
+    ``use_kernels``, 3D compressed assembly, the 3D tensor restriction and
+    the 3D Galerkin product (B16) go through their kernels.
     """
     if operator_repr == "compressed":
         def make_op(t, lvl):
@@ -220,7 +222,8 @@ def build_hierarchy(
         for lvl in levels[1:]:
             with span(MAD_GALERKIN):
                 ops.append(assemble_galerkin_parabolic(ops[-1], lvl.centering,
-                                                       collapse=collapse))
+                                                       collapse=collapse,
+                                                       use_kernels=use_kernels))
     elif coarse_operator == DCA:
         for lvl in levels[1:]:
             with span(MAD_RESTRICT):

@@ -106,28 +106,23 @@ def _matrix_free(op) -> MatrixFreeDCAOperator | None:
     return inner if isinstance(inner, MatrixFreeDCAOperator) else None
 
 
-def plane_getter(op):
-    """``(offsets, get)`` with ``get(k)`` the coefficient plane of
-    ``offsets[k]``, for a stored or compressed operator or the spatial-part
-    view.  A compressed operator's planes come in ``stencil_offsets`` order
-    (19 in 3D, 9 in 2D), its mixed terms as ``s1*s2`` times their plane;
-    views where a plane is stored, new tensors where it is computed."""
+def plane_table(op):
+    """``(offsets, planes, terms)`` of a stored or compressed operator: the
+    coefficient of ``offsets[k]`` is ``sign * planes[p]`` for ``terms[k] ==
+    (p, sign)``.  A stored operator's planes are its own, in its order; a
+    compressed operator's come in ``stencil_offsets`` order (19 in 3D, 9 in
+    2D), its mixed terms as ``s1*s2`` times their plane."""
     if isinstance(op, StencilOperator):
-        return op.offsets, lambda k: op.coeffs[k]
-    if isinstance(op, _SpatialPart):
-        offsets, get = plane_getter(op._op)
-        center = offsets.index((0,) * len(offsets[0]))
-        return offsets, lambda k: 1.0 + -get(k) if k == center else -get(k)
+        return op.offsets, op.coeffs, tuple((k, 1.0) for k in range(len(op.offsets)))
     if isinstance(op, CompressedDCAOperator):
         ndim = op.ndim
-        planes = op.planes
-        terms = {(0,) * ndim: (1.0, -1)}
+        terms = {(0,) * ndim: (op.planes.shape[0] - 1, 1.0)}
         for d in range(ndim):
             e = [0] * ndim
             e[d] = 1
-            terms[tuple(e)] = (1.0, 2 * d)
+            terms[tuple(e)] = (2 * d, 1.0)
             e[d] = -1
-            terms[tuple(e)] = (1.0, 2 * d + 1)
+            terms[tuple(e)] = (2 * d + 1, 1.0)
         k = 0
         for d in range(ndim):
             for d2 in range(d + 1, ndim):
@@ -136,17 +131,29 @@ def plane_getter(op):
                         off = [0] * ndim
                         off[d] = s1
                         off[d2] = s2
-                        terms[tuple(off)] = (float(s1 * s2), 2 * ndim + k)
+                        terms[tuple(off)] = (2 * ndim + k, float(s1 * s2))
                 k += 1
         offsets = stencil_offsets(ndim)
-        order = [terms[off] for off in offsets]
-
-        def get(i):
-            sign, p = order[i]
-            return planes[p] if sign == 1.0 else sign * planes[p]
-
-        return offsets, get
+        return offsets, op.planes, tuple(terms[off] for off in offsets)
     raise TypeError(f"no stored plane form for {type(op).__name__}")
+
+
+def plane_getter(op):
+    """``(offsets, get)`` with ``get(k)`` the coefficient plane of
+    ``offsets[k]``, for a stored or compressed operator (:func:`plane_table`)
+    or the spatial-part view; views where a plane is stored, new tensors
+    where it is computed."""
+    if isinstance(op, _SpatialPart):
+        offsets, get = plane_getter(op._op)
+        center = offsets.index((0,) * len(offsets[0]))
+        return offsets, lambda k: 1.0 + -get(k) if k == center else -get(k)
+    offsets, planes, terms = plane_table(op)
+
+    def get(k):
+        p, sign = terms[k]
+        return planes[p] if sign == 1.0 else sign * planes[p]
+
+    return offsets, get
 
 
 def stored_plane_terms(op):
@@ -220,7 +227,8 @@ def _resolve_method(fine_op, method: str) -> str:
 def assemble_galerkin_parabolic(fine_op, centering: Sequence[str],
                                 probe_batch: int = PROBE_BATCH,
                                 method: str = "auto",
-                                collapse: bool = False) -> StencilOperator:
+                                collapse: bool = False,
+                                use_kernels: bool = False) -> StencilOperator:
     """Galerkin-coarsen the spatial part of the implicit-Euler operator:
     ``A_c = I - R (I - A_f) P`` (exact identity + Galerkin ``dt*L``).
 
@@ -235,7 +243,18 @@ def assemble_galerkin_parabolic(fine_op, centering: Sequence[str],
     ``method``: 'probe', 'direct' or 'auto' (direct from
     :data:`DIRECT_MIN_FINE_VOXELS` fine voxels).  ``collapse`` lumps the
     coarsened ``dt*L`` onto radius 1 (:func:`collapse_to_radius1`) before
-    the identity is added back."""
+    the identity is added back.  ``use_kernels``: a 3D stored or compressed
+    operator on the card in float32 or float64 takes the product kernel
+    (:func:`.cuda_galerkin.cuda_galerkin_product`, the same operator to
+    rounding) and ``method`` does not apply; anything else takes the eager
+    paths above."""
+    if use_kernels:
+        from .cuda_galerkin import kernel_takes
+
+        if kernel_takes(fine_op):
+            from .cuda_galerkin import cuda_galerkin_product
+
+            return cuda_galerkin_product(fine_op, centering, collapse)
     s_c = assemble_galerkin(_SpatialPart(fine_op), centering, probe_batch, method)
     if collapse:
         s_c = collapse_to_radius1(s_c)

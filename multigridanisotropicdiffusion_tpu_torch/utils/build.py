@@ -108,6 +108,19 @@ SIGNATURES = {
                                        ctypes.c_int, _STREAM),
     "mad_stencil2d_stored_residual": (_P, _P, _P, _P, _I, _I, _P, _I, _I,
                                       _STREAM),
+    # planes, out, planes in, fine dims (3), coarse dims (3), host fine table
+    # (A^3 int32), A, host output map (O^3 int32), O, planes out, axis
+    # starts (int32), axis weights (float32), host interior rows (float32),
+    # host interior runs (4 int32), coarse z planes per block, stream
+    # (``ops.cuda_galerkin.product_plan``)
+    "mad_galerkin_product": (_P, _P, _I) + (_I,) * 6 + (_P, _I, _P, _I, _I, _P, _P, _P, _P,
+                                                         _I, _STREAM),
+}
+
+#: entry points built for some storage types only (the rest: every type of
+#: :data:`DTYPE_SUFFIX`)
+ENTRY_DTYPES = {
+    "mad_galerkin_product": (torch.float32, torch.float64),
 }
 
 DTYPE_SUFFIX = {
@@ -214,8 +227,8 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in SIGNATURES.items():
-                for suffix in DTYPE_SUFFIX.values():
-                    fn = getattr(lib, f"{name}_{suffix}")
+                for dtype in ENTRY_DTYPES.get(name, DTYPE_SUFFIX):
+                    fn = getattr(lib, f"{name}_{DTYPE_SUFFIX[dtype]}")
                     fn.argtypes = list(argtypes)
                     fn.restype = ctypes.c_int
             lib.mad_error_string.argtypes = [ctypes.c_int]
@@ -226,7 +239,7 @@ def load_library() -> ctypes.CDLL:
 
 def kernel(name: str, dtype: torch.dtype):
     """The C entry point ``name`` for storage ``dtype``."""
-    if dtype not in DTYPE_SUFFIX:
+    if dtype not in ENTRY_DTYPES.get(name, DTYPE_SUFFIX):
         raise TypeError(f"{name}: no kernel for dtype {dtype}")
     return getattr(load_library(), f"{name}_{DTYPE_SUFFIX[dtype]}")
 

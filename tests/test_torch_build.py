@@ -53,6 +53,29 @@ def test_the_b10_b11_entry_points_are_declared(name, source):
     assert _entry_points()[name] == list(build.SIGNATURES[name])
 
 
+def test_the_b16_entry_point_is_declared_for_float32_and_float64():
+    """The Galerkin product (B16): declared in its source with the ctypes
+    argument list, built for float32 and float64 only (bfloat16 refused
+    before any build), and its tile the host plan's."""
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_galerkin
+
+    text = (build.CSRC_DIR / "galerkin_product.cu").read_text()
+    name = "mad_galerkin_product"
+    assert f'extern "C" int {name}_##SUF(' in text
+    assert _entry_points()[name] == list(build.SIGNATURES[name])
+    made = re.findall(r"^MAD_GALERKIN_ENTRY\((\w+), \w+\)", text, re.MULTILINE)
+    assert sorted(made) == sorted(build.DTYPE_SUFFIX[d] for d in build.ENTRY_DTYPES[name])
+    with pytest.raises(TypeError):
+        build.kernel(name, torch.bfloat16)
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert (int(consts["kTx"]), int(consts["kTy"]), int(consts["kCols"]),
+            int(consts["kAlign"]), int(consts["kTaps"])) == (
+        cuda_galerkin.TILE_X, cuda_galerkin.TILE_Y, cuda_galerkin.COLS,
+        cuda_galerkin.ALIGN, cuda_galerkin.TAPS)
+    assert "constexpr int kRows = 2 * kTy + 2;" in text
+    assert cuda_galerkin.ROWS == 2 * cuda_galerkin.TILE_Y + 2
+
+
 def test_every_storage_type_is_instantiated():
     text = (build.CSRC_DIR / "common.cuh").read_text()
     suffixes = re.findall(r"^\s*MACRO\((\w+), \w+\)", text, re.MULTILINE)
@@ -60,7 +83,7 @@ def test_every_storage_type_is_instantiated():
 
 
 def test_library_name_follows_sources_and_flags(monkeypatch):
-    assert [p.suffix for p in build.sources()].count(".cu") == 7
+    assert [p.suffix for p in build.sources()].count(".cu") == 8
     name = build.library_path().name
     assert name == build.library_path().name
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))

@@ -1,5 +1,6 @@
 """The stored-operator and 2D stencil kernels (B12, B13) against their plain
-PyTorch versions on the card, and the Galerkin and 2D solves through them.
+PyTorch versions on the card, the Galerkin product kernel (B16) against the
+eager Galerkin path, and the Galerkin and 2D solves through them.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_galerkin.py``
@@ -14,7 +15,9 @@ operators in their own order (the generic loop), widths that are whole
 runs of z planes longer and shorter than a block's.  B13's compressed form
 keeps the tolerances of ``tests/test_torch_cuda.py``: float64 1e-12 and
 float32 1e-5 of the largest reference value, bf16 one bf16 ulp of each
-value with the float32 floor.
+value with the float32 floor.  B16 sums in another order than the eager
+path: float64 within 1e-12 and float32 within 1e-6 of the largest diagonal
+value, against the eager path in float64 on the same planes.
 """
 
 import pytest
@@ -23,9 +26,11 @@ import torch
 from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
 from multigridanisotropicdiffusion_tpu_torch.core.grids import CELL, build_level_descriptors
 from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, stencil_offsets
+from multigridanisotropicdiffusion_tpu_torch.models import mad
 from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
 from multigridanisotropicdiffusion_tpu_torch.ops import (
     compressed,
+    cuda_galerkin,
     cuda_smoothers,
     cuda_stencil2d,
     cuda_stencil_stored,
@@ -44,6 +49,7 @@ COUNTERS = {
     "b12_residual": cuda_stencil_stored.cuda_residual,
     "b13_halfsweep": cuda_stencil2d.halfsweep,
     "b13_residual": cuda_stencil2d.cuda_residual,
+    "b16": cuda_galerkin.cuda_galerkin_product,
 }
 
 
@@ -291,10 +297,10 @@ def test_2d_transfers_on_cuda_take_the_plain_versions(device):
 
 @pytest.mark.parametrize("shape,kw,used", [
     ((40, 36, 33), dict(coarse_operator="galerkin"),
-     ("b1_halfsweep", "b12_halfsweep", "b12_residual")),
+     ("b1_halfsweep", "b12_halfsweep", "b12_residual", "b16")),
     ((40, 36, 33), dict(coarse_operator="galerkin", galerkin_variant="exact",
                         galerkin_prune_tol=1e-4),
-     ("b1_halfsweep", "b12_halfsweep", "b12_residual")),
+     ("b1_halfsweep", "b12_halfsweep", "b12_residual", "b16")),
     ((40, 36, 33), dict(operator_repr="stored"), ("b12_halfsweep", "b12_residual")),
     ((200, 193), {}, ("b13_halfsweep", "b13_residual")),
     ((200, 193), dict(coarse_operator="galerkin"), ("b13_halfsweep", "b13_residual")),
@@ -319,3 +325,118 @@ def test_solve_through_kernels_matches_plain(device, shape, kw, used, mixed_prec
     assert abs(int(res.num_cycles[0]) - int(ref.num_cycles[0])) <= 1
     rel = ((res.output - ref.output).norm() / ref.output.norm()).item()
     assert rel <= 1e-4
+
+
+def _centering(shape):
+    return tuple(CELL if n % 2 == 0 else "v" for n in shape)
+
+
+def _b16_fine_op(form, shape, gen, device):
+    """A fine operator in float64: the compressed level-0 operator of a
+    random tensor, or random planes on every cell (borders included) in the
+    stored layouts: 19 (the stored DCA operator's), 27 (collapsed levels),
+    125 (exact levels below the first)."""
+    if form == "compressed":
+        return compressed.assemble_compressed_dca(_tensor(shape, gen, device).double(),
+                                                  (1.0, 0.9, 1.1), 0.1)
+    radius = 2 if form == "stored125" else 1
+    return _random_op(shape, radius, gen, device, drop_corners=form == "stored19")
+
+
+B16_CASES = [("compressed", (64, 64, 64)), ("compressed", (65, 65, 65)),
+             ("compressed", (48, 40, 36)), ("compressed", (4, 33, 70)),
+             ("stored19", (37, 41, 35)), ("stored27", (64, 64, 64)),
+             ("stored27", (65, 18, 9)), ("stored125", (33, 36, 40))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("collapse", [True, False], ids=["collapsed", "exact"])
+@pytest.mark.parametrize("form,shape", B16_CASES, ids=[f"{f}-{s}" for f, s in B16_CASES])
+def test_b16_matches_the_eager_path(device, dtype, collapse, form, shape):
+    """A compressed and stored fine operators (radius 1 and 2), both
+    variants, cell and vertex axes, even, odd and non-cubic sizes, a coarse
+    axis of 2, x and y past one tile: the kernel's planes, offsets and dtype
+    against the eager path in float64 on the same values, and its exact
+    zeros."""
+    gen = torch.Generator(device=device).manual_seed(len(shape) + shape[0])
+    op = _b16_fine_op(form, shape, gen, device).astype(dtype)
+    cent = _centering(shape)
+    before = cuda_galerkin.cuda_galerkin_product.launches
+    got = galerkin.assemble_galerkin_parabolic(op, cent, collapse=collapse, use_kernels=True)
+    torch.cuda.synchronize()
+    assert cuda_galerkin.cuda_galerkin_product.launches == before + 1
+    want = galerkin.assemble_galerkin_parabolic(op.astype(torch.float64), cent,
+                                                collapse=collapse)
+    assert got.offsets == want.offsets and got.coeffs.dtype == dtype
+    assert bool(torch.isfinite(got.coeffs).all())
+    err = (got.coeffs.double() - want.coeffs).abs().max().item()
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    assert err <= tol * want.diag.abs().max().item()
+    # a coupling that leaves the grid is an exact zero, as in the eager path
+    # (bench_port/check_galerkin.py holds zero-scale coefficients to 0)
+    assert bool((got.coeffs[want.coeffs == 0] == 0).all())
+
+
+def test_b16_launches_once_per_galerkin_level(device):
+    """One ``mad_diffusion`` call with Galerkin levels launches B16 once per
+    coarse level, in float32 (``MADConfig.cuda``) and float64."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    shape = (40, 36, 33)
+    t = _tensor(shape, gen, device)
+    b = torch.rand(shape, generator=gen, device=device) * 255
+    n = len(build_level_descriptors(shape)) - 1
+    for dtype in (torch.float32, torch.float64):
+        before = cuda_galerkin.cuda_galerkin_product.launches
+        res = mad_diffusion(b, t, config=MADConfig.cuda(
+            time_step=0.1, tolerance=1e-6, coarse_operator="galerkin"), dtype=dtype,
+            device=device)
+        assert cuda_galerkin.cuda_galerkin_product.launches - before == n
+        assert float(res.final_residual[0]) <= 1e-6
+
+
+def test_b16_galerkin_levels_wait_for_nothing(device, monkeypatch):
+    """Once its plans are on the card, a 128^3 Galerkin ``build_hierarchy``
+    builds its Galerkin levels (B16, the span ``madt.mad.setup.galerkin``)
+    without a synchronising call: ``torch.cuda.set_sync_debug_mode('error')``
+    around each raises nothing.  (The coarsest level's dense LU and its
+    host check, outside that span, do wait.)"""
+    gen = torch.Generator(device=device).manual_seed(4)
+    shape = (128,) * 3
+    t = _tensor(shape, gen, device)
+    levels = build_level_descriptors(shape)
+    build_hierarchy(t, levels, 0.1, "galerkin", "compressed", True)
+    torch.cuda.synchronize()
+    real = mad.assemble_galerkin_parabolic
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(mad, "assemble_galerkin_parabolic", strict)
+    before = cuda_galerkin.cuda_galerkin_product.launches
+    build_hierarchy(t, levels, 0.1, "galerkin", "compressed", True)
+    torch.cuda.synchronize()
+    assert cuda_galerkin.cuda_galerkin_product.launches - before == len(levels) - 1
+
+
+def test_b16_refuses_2d_and_bfloat16(device):
+    """The wrapper refuses a 2D operator and bfloat16 planes; the routing
+    leaves them (and float16) to the eager path."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    op2 = _random_op((12, 10), 1, gen, device)
+    with pytest.raises(ValueError):
+        cuda_galerkin.cuda_galerkin_product(op2, (CELL, CELL), True)
+    op3 = _b16_fine_op("compressed", (16, 16, 16), gen, device)
+    for dtype in (torch.bfloat16, torch.float16):
+        with pytest.raises(TypeError):
+            cuda_galerkin.cuda_galerkin_product(op3.astype(dtype), (CELL,) * 3, True)
+        assert not cuda_galerkin.kernel_takes(op3.astype(dtype))
+    assert not cuda_galerkin.kernel_takes(op2)
+    before = cuda_galerkin.cuda_galerkin_product.launches
+    got = galerkin.assemble_galerkin_parabolic(op3.astype(torch.bfloat16), (CELL,) * 3,
+                                               collapse=True, use_kernels=True)
+    assert got.coeffs.dtype == torch.bfloat16
+    assert cuda_galerkin.cuda_galerkin_product.launches == before
