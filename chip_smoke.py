@@ -596,18 +596,18 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
     torch.cuda.empty_cache()
 
 
-def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_runs,
-                  local=False):
-    """B12 (``module`` = ``ops.cuda_stencil_stored``) or B13
-    (``ops.cuda_stencil2d``) on one float32 operator: both half-sweeps and
-    the residual in float32 and bfloat16 against the plain versions, a
-    stored operator's bit for bit (B12, B13 stored), a 2D compressed
-    operator's within the tolerances.  With ``local``, the shard-local form
-    B14 (``halfsweep_local``, ``cuda_residual_local``; ``module`` =
-    ``ops.cuda_smoothers`` for the compressed operator), held with
-    ``torch.equal``.  With ``timed_runs``: CUDA-event medians and
-    each call's work, (K + 3) values per cell and 2 K float operations."""
+def check_stencil(prefix, tag, op32, gen, errs, timings, work, timed_runs, local=False):
+    """B12 or B13 on one float32 operator, through ``ops.cuda_smoothers``:
+    both half-sweeps and the residual in float32 and bfloat16 against the
+    plain versions, a stored operator's bit for bit (B12, B13 stored), a 2D
+    compressed operator's within the tolerances.  With ``local``, the
+    shard-local form B14 (``halfsweep_local``, ``cuda_residual_local``; of
+    the compressed operator or a stored one), held with ``torch.equal``.
+    With ``timed_runs``: CUDA-event medians and each call's work, (K + 3)
+    values per cell and 2 K float operations."""
     import torch
+
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers as cs
 
     shape = op32.shape
     planes = op32.planes if hasattr(op32, "planes") else op32.coeffs
@@ -618,10 +618,10 @@ def check_stencil(prefix, tag, module, op32, gen, errs, timings, work, timed_run
     for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         op, x, b = op32.astype(dtype), x32.to(dtype), b32.to(dtype)
         sfx = "_local" if local else ""
-        sweep, sweep_plain = (getattr(module, f"halfsweep{sfx}"),
-                              getattr(module, f"halfsweep{sfx}_plain"))
-        resid, resid_plain = (getattr(module, f"cuda_residual{sfx}"),
-                              getattr(module, f"residual{sfx}_plain"))
+        sweep, sweep_plain = (getattr(cs, f"halfsweep{sfx}"),
+                              getattr(cs, f"halfsweep{sfx}_plain"))
+        resid, resid_plain = (getattr(cs, f"cuda_residual{sfx}"),
+                              getattr(cs, f"residual{sfx}_plain"))
         cases = [(f"{prefix}_halfsweep{c} {suffix}",
                   lambda c=c: sweep(op, x, b, c),
                   lambda c=c: sweep_plain(op, x, b, c)) for c in (0, 1)]
@@ -657,20 +657,13 @@ def check_stored_and_2d(gen, errs, timings, work):
     )
     from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator
     from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
-    from multigridanisotropicdiffusion_tpu_torch.ops import (
-        compressed,
-        cuda_stencil2d,
-        cuda_stencil_stored,
-        dca,
-        galerkin,
-    )
+    from multigridanisotropicdiffusion_tpu_torch.ops import compressed, dca, galerkin
     from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("  stored-operator kernel (B12)")
     t = spd_tensor_field(SHAPE, gen)
     stored = dca.assemble_dca(t, (1.0,) * 3, DT)
-    check_stencil("stored", "512^3 stored DCA", cuda_stencil_stored, stored, gen, errs,
-                  timings, work, True)
+    check_stencil("stored", "512^3 stored DCA", stored, gen, errs, timings, work, True)
     del stored
     torch.cuda.empty_cache()
     # level 1 of the 512^3 Galerkin hierarchies; collapsing the exact
@@ -682,25 +675,22 @@ def check_stored_and_2d(gen, errs, timings, work):
     del op0
     torch.cuda.empty_cache()
     collapsed = galerkin.collapse_to_radius1(exact)
-    check_stencil("stored", "256^3 collapsed", cuda_stencil_stored, collapsed, gen, errs,
-                  timings, work, True)
+    check_stencil("stored", "256^3 collapsed", collapsed, gen, errs, timings, work, True)
     # B14 stored (the B12 kernel): one rank's block of a (2, 1, 1) mesh
     block = StencilOperator(collapsed.coeffs[:, :128].contiguous(), collapsed.offsets)
     log("  shard-local stored form (B14 through B12) on a block of the 256^3 collapsed level")
-    check_stencil("stored_local", "256^3 collapsed block", cuda_stencil_stored, block, gen,
-                  errs, timings, work, True, local=True)
+    check_stencil("stored_local", "256^3 collapsed block", block, gen, errs, timings, work,
+                  True, local=True)
     del collapsed, block
-    check_stencil("stored", "256^3 exact", cuda_stencil_stored, exact, gen, errs,
-                  timings, work, True)
+    check_stencil("stored", "256^3 exact", exact, gen, errs, timings, work, True)
     # a pruned level (the generic loop), and the exact hierarchy's level 2
     # (128^3, 125 planes)
-    check_stencil("stored", "256^3 exact pruned", cuda_stencil_stored,
-                  galerkin.prune_stored_operator(exact, 1e-3), gen, errs, timings, work, True)
+    check_stencil("stored", "256^3 exact pruned", galerkin.prune_stored_operator(exact, 1e-3),
+                  gen, errs, timings, work, True)
     level2 = galerkin.assemble_galerkin_parabolic(exact, (CELL,) * 3)
     del exact
     torch.cuda.empty_cache()
-    check_stencil("stored", "128^3 exact", cuda_stencil_stored, level2, gen, errs,
-                  timings, work, True)
+    check_stencil("stored", "128^3 exact", level2, gen, errs, timings, work, True)
     del level2
     torch.cuda.empty_cache()
     shape = (69, 77, 69)
@@ -710,21 +700,21 @@ def check_stored_and_2d(gen, errs, timings, work):
                                "compressed", galerkin_variant=variant)
         for op in hier.operators:
             if isinstance(op, StencilOperator):
-                check_stencil("stored", f"{op.shape} {variant}", cuda_stencil_stored, op,
-                              gen, errs, timings, work, False)
+                check_stencil("stored", f"{op.shape} {variant}", op, gen, errs, timings,
+                              work, False)
     del t, hier
     log("  2D kernel (B13)")
     t = spd_tensor_field(SHAPE_2D, gen)
     for form, assemble in (("compressed", compressed.assemble_compressed_dca),
                            ("stored", dca.assemble_dca)):
-        check_stencil("2d", f"8192^2 {form}", cuda_stencil2d, assemble(t, (1.0, 1.0), DT),
-                      gen, errs, timings, work, True)
+        check_stencil("2d", f"8192^2 {form}", assemble(t, (1.0, 1.0), DT), gen, errs,
+                      timings, work, True)
     del t
     t = spd_tensor_field((1531, 997), gen)
     for form, assemble in (("compressed", compressed.assemble_compressed_dca),
                            ("stored", dca.assemble_dca)):
-        check_stencil("2d", f"(1531, 997) {form}", cuda_stencil2d,
-                      assemble(t, (1.0, 0.7), DT), gen, errs, timings, work, False)
+        check_stencil("2d", f"(1531, 997) {form}", assemble(t, (1.0, 0.7), DT), gen, errs,
+                      timings, work, False)
     del t
     torch.cuda.empty_cache()
 
@@ -1279,7 +1269,6 @@ def check_local(gen, errs, timings, work):
     512^3 level on a (2, 1, 1) mesh, timed, and an odd (37, 45, 51) block."""
     import torch
 
-    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
     from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
 
     log("  shard-local compressed kernel (B14)")
@@ -1287,8 +1276,8 @@ def check_local(gen, errs, timings, work):
                                    ((37, 45, 51), "(37, 45, 51)", False)):
         planes = torch.randn((10, *shape), generator=gen, device="cuda")
         planes[-1] = 8.0 + torch.rand(shape, generator=gen, device="cuda")
-        check_stencil("local", tag, cuda_smoothers, CompressedDCAOperator(planes, 3), gen,
-                      errs, timings, work, timed_runs, local=True)
+        check_stencil("local", tag, CompressedDCAOperator(planes, 3), gen, errs, timings,
+                      work, timed_runs, local=True)
         del planes
     torch.cuda.empty_cache()
 
@@ -1356,18 +1345,16 @@ def ved_pair(vol, cfg, run, expect, exact=None):
     )
     from multigridanisotropicdiffusion_tpu_torch.utils.phantom import tube_centre
 
-    counters = {k: f for k, f in all_counters().items() if k in expect}
     outputs, launches = {}, None
     for label, c in (("kernels", cfg), ("plain", dataclasses.replace(cfg, use_kernels=False))):
-        for f in counters.values():
-            f.launches = 0
+        reset_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = run(c)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        counts = {k: f.launches for k, f in counters.items()}
+        counts = {k: n for k, n in launch_counts().items() if k in expect}
         if label == "kernels":
             launches = counts
             log(f"  launches in the first kernels call: {launches}")
@@ -1558,22 +1545,34 @@ def phase_kernel_less(gen):
     return summary
 
 
-def all_counters():
-    """Every kernel wrapper's launch counter, by the kernels line's names."""
+#: the stencil kernels' launches by the kernels line's names: the sum of
+#: these ``(form, pass)`` keys of ``ops.cuda_smoothers.launches``
+STENCIL_LAUNCHES = {
+    "stencil_halfsweep": (("compressed", "halfsweep"),),
+    "stencil_residual": (("compressed", "residual"),),
+    "stencil_stored_halfsweep": (("stored", "halfsweep"),),
+    "stencil_stored_residual": (("stored", "residual"),),
+    "stencil_2d_halfsweep": (("2d_compressed", "halfsweep"), ("2d_stored", "halfsweep")),
+    "stencil_2d_residual": (("2d_compressed", "residual"), ("2d_stored", "residual")),
+    "stencil_halfsweep_local": (("compressed", "halfsweep_local"),),
+    "stencil_residual_local": (("compressed", "residual_local"),),
+    "stencil_stored_halfsweep_local": (("stored", "halfsweep_local"),),
+    "stencil_stored_residual_local": (("stored", "residual_local"),),
+}
+
+
+def wrapper_counters():
+    """The other kernels' wrappers, which count their launches in
+    ``.launches``, by the kernels line's names."""
     from multigridanisotropicdiffusion_tpu_torch.ops import (
         cuda_assemble,
         cuda_conv,
         cuda_galerkin,
-        cuda_smoothers,
-        cuda_stencil2d,
-        cuda_stencil_stored,
         cuda_transfer,
         cuda_vesselness,
     )
 
     return {
-        "stencil_halfsweep": cuda_smoothers.halfsweep,
-        "stencil_residual": cuda_smoothers.cuda_residual,
         "restrict3d": cuda_transfer.cuda_restrict,
         "prolong3d": cuda_transfer.cuda_prolong,
         "assemble_compressed": cuda_assemble.cuda_assemble_compressed_dca,
@@ -1582,19 +1581,30 @@ def all_counters():
         "fd_vesselness": cuda_vesselness.fd_vesselness,
         "hessian_vesselness": cuda_vesselness.hessian_vesselness,
         "tensor_assembly": cuda_vesselness.tensor_assembly,
-        "stencil_stored_halfsweep": cuda_stencil_stored.halfsweep,
-        "stencil_stored_residual": cuda_stencil_stored.cuda_residual,
-        "stencil_2d_halfsweep": cuda_stencil2d.halfsweep,
-        "stencil_2d_residual": cuda_stencil2d.cuda_residual,
         "conv_y": cuda_conv.conv_y,
         "conv_x": cuda_conv.conv_x,
         "fd_hessian": cuda_vesselness.fd_hessian,
-        "stencil_halfsweep_local": cuda_smoothers.halfsweep_local,
-        "stencil_residual_local": cuda_smoothers.cuda_residual_local,
-        "stencil_stored_halfsweep_local": cuda_stencil_stored.halfsweep_local,
-        "stencil_stored_residual_local": cuda_stencil_stored.cuda_residual_local,
         "galerkin_product": cuda_galerkin.cuda_galerkin_product,
     }
+
+
+def launch_counts():
+    """Every kernel's launches since :func:`reset_counters`, by the kernels
+    line's names."""
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
+
+    counts = {name: sum(cuda_smoothers.launches[k] for k in keys)
+              for name, keys in STENCIL_LAUNCHES.items()}
+    counts.update({name: f.launches for name, f in wrapper_counters().items()})
+    return counts
+
+
+def reset_counters():
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
+
+    cuda_smoothers.launches.clear()
+    for f in wrapper_counters().values():
+        f.launches = 0
 
 
 def solve_pair(title, b, tensor, kw, expect, dtype=None, max_cycles=100):
@@ -1613,12 +1623,10 @@ def solve_pair(title, b, tensor, kw, expect, dtype=None, max_cycles=100):
     from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
 
     shape = tuple(b.shape)
-    counters = all_counters()
     outputs, cycles, summary, launches = {}, {}, {"case": title}, None
     for label in ("kernels", "plain"):
         cfg = MADConfig.cuda(use_kernels=label == "kernels", max_cycles=max_cycles, **kw)
-        for f in counters.values():
-            f.launches = 0
+        reset_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1626,7 +1634,7 @@ def solve_pair(title, b, tensor, kw, expect, dtype=None, max_cycles=100):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        counts = {k: f.launches for k, f in counters.items() if f.launches}
+        counts = {k: n for k, n in launch_counts().items() if n}
         if label == "kernels":
             launches = counts
             missing = [k for k in expect if not counts.get(k)]
@@ -1725,18 +1733,16 @@ def phase_2d(gen):
     from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("== phase 8: 2D main path: lena (float64) and 8192^2 (float32)")
-    counters = all_counters()
     g = np.load(LENA)
     img = torch.as_tensor(g["input"], dtype=torch.float64, device="cuda")
     tensor = torch.stack([torch.full_like(img, 50.0), torch.zeros_like(img),
                           torch.full_like(img, 30.0)])
-    for f in counters.values():
-        f.launches = 0
+    reset_counters()
     res = mad_diffusion(img, tensor, config=MADConfig.cuda(
         mixed_precision=False, time_step=0.1, tolerance=1e-10),
         dtype=torch.float64, device="cuda")
     torch.cuda.synchronize()
-    counts = {k: f.launches for k, f in counters.items() if f.launches}
+    counts = {k: n for k, n in launch_counts().items() if n}
     want = torch.as_tensor(g["output"], dtype=torch.float64, device="cuda")
     rel = ((res.output - want).norm() / want.norm()).item()
     n, fin = int(res.num_cycles[0]), float(res.final_residual[0])
@@ -1771,12 +1777,7 @@ DIST_TIMEOUT_S = 420
 
 
 def _b14_counts():
-    return {k: f.launches for k, f in all_counters().items() if k in LOCAL_KERNELS}
-
-
-def _reset_counters():
-    for f in all_counters().values():
-        f.launches = 0
+    return {k: n for k, n in launch_counts().items() if k in LOCAL_KERNELS}
 
 
 def dist_sweep(mesh):
@@ -1803,7 +1804,7 @@ def dist_sweep(mesh):
     spec = level_spec(mesh, SHAPE)
     op_l = shard_operator(op, mesh, spec=spec)
     x_l, b_l = shard_field(x, mesh, spec=spec), shard_field(b, mesh, spec=spec)
-    _reset_counters()
+    reset_counters()
     y = halo.make_halo_kernel_rbgs_sweep(mesh, spec)(op_l, x_l, b_l)
     r = halo.make_halo_kernel_residual(mesh, spec)(op_l, x_l, b_l)
     torch.cuda.synchronize()
@@ -1823,7 +1824,7 @@ def _dist_solve_run(mesh, run, warm=None):
     import torch
     import torch.distributed as dist
 
-    _reset_counters()
+    reset_counters()
     dist.barrier()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1832,7 +1833,7 @@ def _dist_solve_run(mesh, run, warm=None):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     out = {"first_s": first_s, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": {k: f.launches for k, f in all_counters().items() if f.launches}}
+           "launches": {k: n for k, n in launch_counts().items() if n}}
     out["b14_launches"] = _b14_counts()
     dist.barrier()
     t0 = time.perf_counter()

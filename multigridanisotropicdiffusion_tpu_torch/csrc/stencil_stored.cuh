@@ -26,7 +26,7 @@
 // call for 117 planes at 256^3, 11.8 GB for the 19-plane operator at
 // 512^3).  Two products' worth of float work per tap is far below it.
 //
-// The host plan (ops/cuda_stencil_stored.py `tap_plan`, cached per offset
+// The host plan (ops/cuda_smoothers.py `tap_plan`, cached per offset
 // table) lists the non-centre taps in the operator's order: plane index,
 // (dz, dy, dx) and, for each of a lane's four cells, the offset of its
 // neighbour in the staged x tile.  The launcher checks the offsets against

@@ -13,9 +13,9 @@ Differences from the JAX package:
   Python ``if`` on that same host value.
 * ``MADConfig.use_kernels`` routes the solve through the CUDA kernels: the
   stencil half-sweeps and residuals of every operator the JAX package sends
-  to Pallas (``ops.smoothers.has_kernel``: the compressed operator in 2D and
-  3D, ``ops.cuda_smoothers``/``ops.cuda_stencil2d``; 3D stored operators of
-  radius 1-2, ``ops.cuda_stencil_stored``; 2D stored radius 1), the 3D
+  to Pallas (``ops.cuda_smoothers``, whose ``kernel_takes`` is JAX's
+  ``pallas_compatible``: the compressed operator in 2D and 3D, 3D stored
+  operators of radius 1-2, 2D stored radius 1), the 3D
   restriction and prolongation (``ops.cuda_transfer``), the 3D
   compressed-operator assembly (``ops.cuda_assemble``) and the 3D Galerkin
   product of stored or compressed levels (``ops.cuda_galerkin``, which the
@@ -282,15 +282,14 @@ def v_cycle(
     b: torch.Tensor,
     level: int = 0,
     resid=residual,
-    use_kernels: bool = False,
     transfers: Transfers | None = None,
 ) -> torch.Tensor:
     """One V-cycle starting at ``level`` (reference VCycle, .hxx:341-493).
     At the coarsest level the initial guess is ignored and the rhs is solved
-    directly.  ``use_kernels`` routes the standard transfers through their
-    kernels; ``transfers`` replaces them."""
+    directly.  ``transfers`` carries the level hooks (default: the plain
+    standard transfers)."""
     if transfers is None:
-        transfers = _standard_transfers(levels, use_kernels)
+        transfers = _standard_transfers(levels)
     if level == len(levels) - 1:
         return transfers.solve_coarse(hier.solver, b, level)
 
@@ -302,7 +301,7 @@ def v_cycle(
 
     rc = transfers.restrict(r, level)
     ec = v_cycle(hier, levels, smooth, iterations_per_grid, torch.zeros_like(rc),
-                 rc, level + 1, resid, use_kernels, transfers)
+                 rc, level + 1, resid, transfers)
     x = transfers.prolong_add(x, ec, level)
 
     for _ in range(iterations_per_grid):
@@ -318,26 +317,25 @@ def full_multigrid(
     b: torch.Tensor,
     level: int = 0,
     resid=residual,
-    use_kernels: bool = False,
     transfers: Transfers | None = None,
 ) -> torch.Tensor:
     """Full multigrid initialization (reference FullMultiGrid, .hxx:300-338)."""
     if transfers is None:
-        transfers = _standard_transfers(levels, use_kernels)
+        transfers = _standard_transfers(levels)
     if level == len(levels) - 1:
         x = torch.zeros_like(b)
         for _ in range(iterations_per_grid):
             x = v_cycle(hier, levels, smooth, iterations_per_grid, x, b, level,
-                        resid, use_kernels, transfers)
+                        resid, transfers)
         return x
 
     bc = transfers.restrict(b, level)
     xc = full_multigrid(hier, levels, smooth, iterations_per_grid, bc, level + 1,
-                        resid, use_kernels, transfers)
+                        resid, transfers)
     x = transfers.prolong(xc, level)
     for _ in range(iterations_per_grid):
         x = v_cycle(hier, levels, smooth, iterations_per_grid, x, b, level,
-                    resid, use_kernels, transfers)
+                    resid, transfers)
     return x
 
 

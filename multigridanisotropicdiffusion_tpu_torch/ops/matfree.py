@@ -12,7 +12,7 @@ transport coefficients use the assembly's tensor derivative
 no reflection reaches, is ``1 + sum_d 2 dt/h_d^2 M_dd``.
 
 It has no kernel, in the JAX package (plain XLA there) or here:
-``ops.smoothers.has_kernel`` is False for it, so its sweeps and residuals
+``ops.cuda_smoothers.kernel_takes`` is False for it, so its sweeps and residuals
 run as plain PyTorch on every device.  Low-precision tensor planes are read
 in the compute dtype (float32 for bf16), the rule of every operator of the
 port.  ``apply`` and ``offdiag_apply`` take any leading batch axes before

@@ -11,12 +11,12 @@ sum) goes first.
 
 ``make_smoother``/``make_residual`` with ``use_kernels`` send every
 operator that the JAX package sends to its Pallas kernels
-(:func:`has_kernel`) to a stencil kernel's wrappers: the 3D compressed
-operator to :mod:`.cuda_smoothers`, 3D stored operators to
-:mod:`.cuda_stencil_stored`, 2D operators to :mod:`.cuda_stencil2d`.  For a
-CPU tensor those take their plain versions; for a CUDA tensor they launch
-the kernel or raise.  The Chebyshev smoother has no kernel, in the JAX
-package or here: it runs as plain PyTorch on every device.
+(``cuda_smoothers.kernel_takes``, its ``pallas_compatible``) to the stencil
+kernels' entry points in :mod:`.cuda_smoothers`, which dispatch on the
+operator's form (3D compressed, 3D stored, 2D).  For a CPU tensor those
+take their plain versions; for a CUDA tensor they launch the kernel or
+raise.  The Chebyshev smoother has no kernel, in the JAX package or here:
+it runs as plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -26,8 +26,7 @@ from typing import Tuple
 
 import torch
 
-from ..core.stencil import StencilOperator, compute_dtype, residual
-from .compressed import CompressedDCAOperator
+from ..core.stencil import compute_dtype, residual
 
 #: Default damping for weighted Jacobi (itkMultigridWeightedJacobiSmoother.hxx:189).
 DEFAULT_JACOBI_WEIGHT = 2.0 / 3.0
@@ -75,50 +74,25 @@ def rb_gauss_seidel_sweep(op, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def has_kernel(op) -> bool:
-    """Whether ``op`` has a stencil kernel: the counterpart of the JAX
-    package's ``pallas_compatible(op)`` (``max_radius=2``).  The compressed
-    operator in 2D or 3D; a 3D stored operator of radius 1 or 2 (stored DCA
-    and collapsed Galerkin levels are radius 1, exact Galerkin levels reach
-    2); a 2D stored operator of radius 1."""
-    if isinstance(op, CompressedDCAOperator):
-        return op.ndim in (2, 3)
-    if not isinstance(op, StencilOperator):
-        return False
-    if op.ndim == 3:
-        return 1 <= op.radius <= 2
-    return op.ndim == 2 and op.radius == 1
-
-
-def _kernel_module(op):
-    """The wrapper module of ``op``'s stencil kernel (``has_kernel(op)``)."""
-    if op.ndim == 2:
-        from . import cuda_stencil2d as mod
-    elif isinstance(op, CompressedDCAOperator):
-        from . import cuda_smoothers as mod
-    else:
-        from . import cuda_stencil_stored as mod
-    return mod
-
-
 def make_smoother(kind: str, omega: float = DEFAULT_JACOBI_WEIGHT,
                   use_kernels: bool = False):
     """Return ``smooth(op, x, b) -> x'`` for the named smoother.
 
     ``kind``: 'gauss_seidel' (red-black), 'weighted_jacobi' or 'chebyshev'.
     ``use_kernels``: the GS sweeps of every operator with a stencil kernel
-    (:func:`has_kernel`) go through it.  An operator the JAX package never
-    sends to Pallas (the radius-2 levels of a 2D exact Galerkin hierarchy)
-    runs the plain sweep on any device, as the JAX package runs it through
-    XLA: that is its path, not a fallback.
+    (``cuda_smoothers.kernel_takes``) go through it.  An operator the JAX
+    package never sends to Pallas (the radius-2 levels of a 2D exact
+    Galerkin hierarchy) runs the plain sweep on any device, as the JAX
+    package runs it through XLA: that is its path, not a fallback.
     """
     if kind in _GS:
         if not use_kernels:
             return rb_gauss_seidel_sweep
+        from . import cuda_smoothers as cs  # which imports this module
 
         def sweep(op, x, b):
-            if has_kernel(op):
-                return _kernel_module(op).rbgs_sweep(op, x, b)
+            if cs.kernel_takes(op):
+                return cs.rbgs_sweep(op, x, b)
             return rb_gauss_seidel_sweep(op, x, b)
 
         return sweep
@@ -135,10 +109,11 @@ def make_residual(use_kernels: bool = False):
     in :func:`make_smoother`)."""
     if not use_kernels:
         return residual
+    from . import cuda_smoothers as cs  # which imports this module
 
     def resid(op, x, b):
-        if has_kernel(op):
-            return _kernel_module(op).cuda_residual(op, x, b)
+        if cs.kernel_takes(op):
+            return cs.cuda_residual(op, x, b)
         return residual(op, x, b)
 
     return resid

@@ -27,12 +27,13 @@ The kernel path (:func:`make_halo_kernel_rbgs_sweep`,
 :func:`make_halo_kernel_residual`, the JAX package's
 ``make_halo_pallas_*``) is overlapped in both modes, as the JAX package's
 Pallas path is: the shard-local kernel B14 runs on each 3D block of a
-radius-1 operator (``ops.cuda_smoothers.halfsweep_local`` for the
-compressed operator, ``ops.cuda_stencil_stored.halfsweep_local`` for a
-stored one), dropping every term that crosses the block's border, while
-the faces move; the 1-voxel boundary slabs are then recomputed in plain
-PyTorch from slab-local pieces of the exchanged shell
-(:func:`_halfsweep_slab_fix`), and the colour is flipped on blocks whose
+radius-1 operator (``ops.cuda_smoothers.halfsweep_local``; the blocks
+that ``x.dim() == 3 and kernel_takes(op, max_radius=1)`` admits, as the
+JAX package's ``pallas_compatible(op, max_radius=1)`` does), dropping
+every term that crosses the block's border, while the faces move; the
+1-voxel boundary slabs are then recomputed in plain PyTorch from
+slab-local pieces of the exchanged shell (:func:`_halfsweep_slab_fix`),
+and the colour is flipped on blocks whose
 global origin is odd (the kernel's parity is the local index sum).  It
 builds no padded copy of the block.  On a CPU tensor the wrappers take
 their plain versions and the exchange runs in program order.
@@ -48,7 +49,8 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
-from ..core.stencil import StencilOperator, compute_dtype
+from ..core.stencil import compute_dtype
+from ..ops import cuda_smoothers
 from ..ops.compressed import CompressedDCAOperator
 from ..ops.smoothers import CHEBYSHEV_DEGREE, CHEBYSHEV_EIG_RATIO, DEFAULT_JACOBI_WEIGHT, parity_mask
 from .sharding import (
@@ -330,24 +332,6 @@ def make_halo_residual(mesh: GridMesh, spec: Spec, overlap: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def kernel_ok(op, x: torch.Tensor) -> bool:
-    """3D blocks of radius-1 operators take B14 (the shard-local kernels and
-    the 1-voxel slab fix are radius 1 only; 2D has no shard-local form)."""
-    if x.dim() != 3:
-        return False
-    if isinstance(op, CompressedDCAOperator):
-        return True
-    return isinstance(op, StencilOperator) and op.radius == 1
-
-
-def _kernel_module(op):
-    if isinstance(op, CompressedDCAOperator):
-        from ..ops import cuda_smoothers as mod
-    else:
-        from ..ops import cuda_stencil_stored as mod
-    return mod
-
-
 def _halfsweep_slab_fix(op, x_new, x, region, b, color: int, mesh: GridMesh,
                         spec: Spec) -> torch.Tensor:
     """Recompute the half-sweep on the 1-voxel boundary slabs of split
@@ -391,14 +375,13 @@ def make_halo_kernel_rbgs_sweep(mesh: GridMesh, spec: Spec):
     fallback = make_halo_rbgs_sweep(mesh, spec, overlap=True)
 
     def sweep(op, x, b):
-        if not kernel_ok(op, x):
+        if not (x.dim() == 3 and cuda_smoothers.kernel_takes(op, max_radius=1)):
             return fallback(op, x, b)
-        mod = _kernel_module(op)
         radii = (1,) * x.dim()
         flip = _origin_parity(tuple(x.shape), mesh, spec)
         for color in (0, 1):
             ready = ready_event(x)
-            x_new = mod.halfsweep_local(op, x, b, color ^ flip)
+            x_new = cuda_smoothers.halfsweep_local(op, x, b, color ^ flip)
             shell = exchange_halo_shell(x, mesh, spec, radii, ready)
             x = _halfsweep_slab_fix(op, x_new, x, shell.region, b, color, mesh, spec)
         return x
@@ -412,10 +395,10 @@ def make_halo_kernel_residual(mesh: GridMesh, spec: Spec):
     fallback = make_halo_residual(mesh, spec, overlap=True)
 
     def res(op, x, b):
-        if not kernel_ok(op, x):
+        if not (x.dim() == 3 and cuda_smoothers.kernel_takes(op, max_radius=1)):
             return fallback(op, x, b)
         ready = ready_event(x)
-        r = _kernel_module(op).cuda_residual_local(op, x, b)
+        r = cuda_smoothers.cuda_residual_local(op, x, b)
         shell = exchange_halo_shell(x, mesh, spec, (1,) * x.dim(), ready)
         return _residual_slab_fix(op, r, x, shell.region, b, mesh, spec)
 

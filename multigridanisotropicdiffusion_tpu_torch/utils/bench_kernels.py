@@ -83,15 +83,15 @@ largest-magnitude eigenvalues negative: the voxels whose vesselness is not
 its two Hessian stacks). Prints the card's name and power
 limit, one line per case, and a last line ``{"cases": [...]}``.  Exits 1 if a check fails or there is no card.
 
-The script imports only what every version of the package since the
-stored-operator kernels has (``ops.cuda_transfer``, ``ops.cuda_conv``,
-``ops.transfer``, ``ops.hessian``, ``ops.cuda_vesselness``,
-``ops.eigen3``, ``ops.cuda_smoothers``, ``ops.cuda_stencil_stored``,
-``ops.cuda_stencil2d``, ``ops.dca``, ``ops.compressed``, ``ops.galerkin``, ``core``,
-``models.ved``, ``utils.phantom``), so a copy of it in an older tree times
-that tree's kernels: two trees are compared in one call by running it in
-each, in turns (``--only stored --only 2d_stored``: B12 and B13 alone;
-``--only compressed``: B1/B2 and B14).
+The script imports ``ops.cuda_transfer``, ``ops.cuda_conv``,
+``ops.transfer``, ``ops.hessian``, ``ops.cuda_vesselness``, ``ops.eigen3``,
+``ops.cuda_smoothers``, ``ops.dca``, ``ops.compressed``, ``ops.galerkin``,
+``core``, ``models.ved`` and ``utils.phantom``; the stencil cases need the
+one wrapper module of every stencil form (``ops.cuda_smoothers`` with
+``kernel_takes``), so a tree older than that runs its own copy of the
+script.  Two trees are compared in one call by running it in each, in
+turns (``--only stored --only 2d_stored``: B12 and B13 alone; ``--only
+compressed``: B1/B2 and B14).
 """
 
 from __future__ import annotations
@@ -447,22 +447,23 @@ def main(argv=None) -> int:
         del u
         torch.cuda.empty_cache()
 
-    def stencil_cases(prefix, tag, module, op32, local=False):
-        """B1/B2 (``module`` = ``ops.cuda_smoothers``), B12
-        (``ops.cuda_stencil_stored``; ``local``: the shard-local form of
-        either, B14) or B13's stored form (``ops.cuda_stencil2d``) on one
-        float32 operator: both half-sweeps and the residual in float32 and
-        bfloat16, bit for bit the plain versions (the local forms: equal
+    def stencil_cases(prefix, tag, op32, local=False):
+        """B1/B2, B12 (``local``: the shard-local form of either, B14) or
+        B13's stored form on one float32 operator, through
+        ``ops.cuda_smoothers``: both half-sweeps and the residual in float32
+        and bfloat16, bit for bit the plain versions (the local forms: equal
         values, ``torch.equal``); (K + 3) values per cell."""
+        from ..ops import cuda_smoothers as cs
+
         k = len(op32.offsets) if hasattr(op32, "offsets") else op32.planes.shape[0]
         gen_x = torch.Generator(device="cuda").manual_seed(k)
         x32 = torch.randn(op32.shape, generator=gen_x, device="cuda") * 10.0
         b32 = torch.rand(op32.shape, generator=gen_x, device="cuda") * 255.0
         sfx = "_local" if local else ""
-        sweep, sweep_plain = (getattr(module, f"halfsweep{sfx}"),
-                              getattr(module, f"halfsweep{sfx}_plain"))
-        resid, resid_plain = (getattr(module, f"cuda_residual{sfx}"),
-                              getattr(module, f"residual{sfx}_plain"))
+        sweep, sweep_plain = (getattr(cs, f"halfsweep{sfx}"),
+                              getattr(cs, f"halfsweep{sfx}_plain"))
+        resid, resid_plain = (getattr(cs, f"cuda_residual{sfx}"),
+                              getattr(cs, f"residual{sfx}_plain"))
         for dtype in (torch.float32, torch.bfloat16):
             op, x, b = op32.astype(dtype), x32.to(dtype), b32.to(dtype)
             nbytes = (k + 3) * x.numel() * x.element_size()
@@ -482,19 +483,18 @@ def main(argv=None) -> int:
     if wanted("compressed"):
         # B1/B2 on the main path's first three levels, and B14 on one rank's
         # block of the 512^3 level on a (2, 1, 1) mesh
-        from ..ops import compressed, cuda_smoothers
+        from ..ops import compressed
         from .phantom import spd_tensor_field
 
         for n in (512, 256, 128):
             t = spd_tensor_field((n,) * 3, torch.Generator(device="cuda").manual_seed(0))
             op = compressed.assemble_compressed_dca(t, (1.0,) * 3, 0.1)
             del t
-            stencil_cases("compressed", f"{n}^3", cuda_smoothers, op)
+            stencil_cases("compressed", f"{n}^3", op)
             if n == 512:
                 block = compressed.CompressedDCAOperator(op.planes[:, :256].contiguous(), 3)
                 del op
-                stencil_cases("compressed_local", "(256, 512, 512) block", cuda_smoothers,
-                              block, local=True)
+                stencil_cases("compressed_local", "(256, 512, 512) block", block, local=True)
                 del block
             else:
                 del op
@@ -509,42 +509,39 @@ def main(argv=None) -> int:
         # 256) block of the collapsed level through the shard-local form
         from ..core.grids import CELL
         from ..core.stencil import StencilOperator
-        from ..ops import compressed, cuda_stencil_stored, dca, galerkin
+        from ..ops import compressed, dca, galerkin
         from .phantom import spd_tensor_field
 
         t = spd_tensor_field((512,) * 3, torch.Generator(device="cuda").manual_seed(0))
-        stencil_cases("stored", "512^3 DCA", cuda_stencil_stored,
-                      dca.assemble_dca(t, (1.0,) * 3, 0.1))
+        stencil_cases("stored", "512^3 DCA", dca.assemble_dca(t, (1.0,) * 3, 0.1))
         op0 = compressed.assemble_compressed_dca(t, (1.0,) * 3, 0.1)
         del t
         exact = galerkin.assemble_galerkin_parabolic(op0, (CELL,) * 3)
         del op0
         torch.cuda.empty_cache()
         collapsed = galerkin.collapse_to_radius1(exact)
-        stencil_cases("stored", "256^3 collapsed", cuda_stencil_stored, collapsed)
+        stencil_cases("stored", "256^3 collapsed", collapsed)
         block = StencilOperator(collapsed.coeffs[:, :128].contiguous(), collapsed.offsets)
         del collapsed
-        stencil_cases("stored_local", "(128, 256, 256) block", cuda_stencil_stored, block,
-                      local=True)
+        stencil_cases("stored_local", "(128, 256, 256) block", block, local=True)
         del block
-        stencil_cases("stored", "256^3 exact", cuda_stencil_stored, exact)
-        stencil_cases("stored", "256^3 exact pruned 1e-3", cuda_stencil_stored,
+        stencil_cases("stored", "256^3 exact", exact)
+        stencil_cases("stored", "256^3 exact pruned 1e-3",
                       galerkin.prune_stored_operator(exact, 1e-3))
         level2 = galerkin.assemble_galerkin_parabolic(exact, (CELL,) * 3)
         del exact
         torch.cuda.empty_cache()
-        stencil_cases("stored", "128^3 exact", cuda_stencil_stored, level2)
+        stencil_cases("stored", "128^3 exact", level2)
         del level2
         torch.cuda.empty_cache()
     if wanted("2d_stored"):
         # B13's stored form: the 9-plane stored DCA operator
-        from ..ops import cuda_stencil2d, dca
+        from ..ops import dca
         from .phantom import spd_tensor_field
 
         for shape, spacing in (((8192, 8192), (1.0, 1.0)), ((1531, 997), (1.0, 0.7))):
             t = spd_tensor_field(shape, torch.Generator(device="cuda").manual_seed(1))
-            stencil_cases("2d_stored", f"{shape[0]}x{shape[1]}", cuda_stencil2d,
-                          dca.assemble_dca(t, spacing, 0.1))
+            stencil_cases("2d_stored", f"{shape[0]}x{shape[1]}", dca.assemble_dca(t, spacing, 0.1))
             del t
     for dtype in (torch.float32, torch.bfloat16):
         if wanted("conv_z") or wanted("conv_y") or wanted("conv_x"):

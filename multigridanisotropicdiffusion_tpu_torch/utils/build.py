@@ -93,7 +93,7 @@ SIGNATURES = {
     # resp, h, out, voxels, 1/sensitivity, epsilon - 1, omega - epsilon, stream
     "mad_tensor_assembly": (_P, _P, _P, _I, _D, _D, _D, _STREAM),
     # planes, x, b, out, nz, ny, nx, host tap plan (K - 1, 8) int32
-    # (``ops.cuda_stencil_stored.tap_plan``), K - 1, centre, color, stream
+    # (``ops.cuda_smoothers.tap_plan``), K - 1, centre, color, stream
     "mad_stencil_stored_halfsweep": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
                                      ctypes.c_int, _STREAM),
     "mad_stencil_stored_residual": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,

@@ -37,8 +37,10 @@ DTYPES = [torch.float64, torch.float32, torch.bfloat16]
 #: a tile's rows, Z = 1 and 2
 RAGGED = [(1, 5, 3), (2, 9, 130), (3, 7, 127), (5, 17, 4), (2, 3, 133), (9, 10, 64)]
 INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-COUNTERS = (cuda_smoothers.halfsweep, cuda_smoothers.cuda_residual,
-            cuda_transfer.cuda_restrict, cuda_transfer.cuda_prolong,
+#: the B1/B2 keys of ``cuda_smoothers.launches``, and the other kernels'
+#: wrappers, which count on ``.launches``
+STENCIL = (("compressed", "halfsweep"), ("compressed", "residual"))
+COUNTERS = (cuda_transfer.cuda_restrict, cuda_transfer.cuda_prolong,
             cuda_assemble.cuda_assemble_compressed_dca)
 
 
@@ -126,7 +128,7 @@ def test_stencil_ragged_shapes_bit_for_bit(device, shape, dtype):
     flat = torch.empty(x.numel() + 1, dtype=dtype, device=device)
     shifted = flat[1:].view(shape)
     shifted.copy_(x)
-    before = (cuda_smoothers.halfsweep.launches, cuda_smoothers.cuda_residual.launches)
+    before = cuda_smoothers.launches.copy()
     for xin in (x, shifted):
         for color in (0, 1):
             _check_bits(cuda_smoothers.halfsweep(op, xin, b, color),
@@ -134,8 +136,7 @@ def test_stencil_ragged_shapes_bit_for_bit(device, shape, dtype):
         _check_bits(cuda_smoothers.cuda_residual(op, xin, b),
                     cuda_smoothers.residual_plain(op, x, b))
     torch.cuda.synchronize()
-    assert (cuda_smoothers.halfsweep.launches - before[0],
-            cuda_smoothers.cuda_residual.launches - before[1]) == (4, 2)
+    assert cuda_smoothers.launches - before == dict(zip(STENCIL, (4, 2)))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -217,10 +218,12 @@ def test_solve_through_kernels_matches_plain(device, mixed_precision):
     t = _tensor(shape, device, gen)
     b = torch.rand(shape, generator=gen, device=device) * 255
     cfg = MADConfig.cuda(mixed_precision, time_step=0.1, tolerance=1e-6, max_cycles=50)
+    cuda_smoothers.launches.clear()
     for f in COUNTERS:
         f.launches = 0
     res = mad_diffusion(b, t, config=cfg, device=device)
     assert all(f.launches > 0 for f in COUNTERS)
+    assert all(cuda_smoothers.launches[k] > 0 for k in STENCIL)
     ref = mad_diffusion(b, t, config=MADConfig.cuda(
         mixed_precision, use_kernels=False, time_step=0.1, tolerance=1e-6,
         max_cycles=50), device=device)

@@ -32,8 +32,6 @@ from multigridanisotropicdiffusion_tpu_torch.ops import (
     compressed,
     cuda_galerkin,
     cuda_smoothers,
-    cuda_stencil2d,
-    cuda_stencil_stored,
     cuda_transfer,
     galerkin,
     transfer,
@@ -43,13 +41,14 @@ pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float64, torch.float32, torch.bfloat16]
 INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-COUNTERS = {
-    "b1_halfsweep": cuda_smoothers.halfsweep,
-    "b12_halfsweep": cuda_stencil_stored.halfsweep,
-    "b12_residual": cuda_stencil_stored.cuda_residual,
-    "b13_halfsweep": cuda_stencil2d.halfsweep,
-    "b13_residual": cuda_stencil2d.cuda_residual,
-    "b16": cuda_galerkin.cuda_galerkin_product,
+#: the stencil kernels' counts: the sum of these ``cuda_smoothers.launches``
+#: keys
+STENCIL = {
+    "b1_halfsweep": (("compressed", "halfsweep"),),
+    "b12_halfsweep": (("stored", "halfsweep"),),
+    "b12_residual": (("stored", "residual"),),
+    "b13_halfsweep": (("2d_compressed", "halfsweep"), ("2d_stored", "halfsweep")),
+    "b13_residual": (("2d_compressed", "residual"), ("2d_stored", "residual")),
 }
 
 
@@ -116,16 +115,17 @@ def _tensor(shape, gen, device):
     return torch.stack([(g[i] * g[j]).sum(0) + (2.0 if i == j else 0.0) for i, j in pairs])
 
 
-def _check_kernels(module, op, gen, dtype, exact=False):
+def _check_kernels(op, gen, dtype, exact=False):
     """Both half-sweeps and the residual against the plain versions: their
     bytes with ``exact``, else within the tolerances."""
+    cs = cuda_smoothers
     op = op.astype(dtype)
     x = (torch.randn(op.shape, generator=gen, device="cuda", dtype=torch.float64) * 10).to(dtype)
     b = (torch.randn(op.shape, generator=gen, device="cuda", dtype=torch.float64) * 10).to(dtype)
     cmp = _check_bits if exact else _check
     for color in (0, 1):
-        cmp(module.halfsweep(op, x, b, color), module.halfsweep_plain(op, x, b, color))
-    cmp(module.cuda_residual(op, x, b), module.residual_plain(op, x, b))
+        cmp(cs.halfsweep(op, x, b, color), cs.halfsweep_plain(op, x, b, color))
+    cmp(cs.cuda_residual(op, x, b), cs.residual_plain(op, x, b))
     torch.cuda.synchronize()
 
 
@@ -136,8 +136,8 @@ def _check_kernels(module, op, gen, dtype, exact=False):
 ], ids=["19", "27", "125", "125-tiny"])
 def test_b12_random_operators_match_plain(device, dtype, radius, drop_corners, shape):
     gen = torch.Generator(device=device).manual_seed(radius + len(shape))
-    _check_kernels(cuda_stencil_stored, _random_op(shape, radius, gen, device, drop_corners),
-                   gen, dtype, exact=True)
+    _check_kernels(_random_op(shape, radius, gen, device, drop_corners), gen, dtype,
+                   exact=True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -154,7 +154,7 @@ def test_b12_layouts_and_shapes_match_plain_bitwise(device, dtype, layout, shape
     and a last run of 3)."""
     gen = torch.Generator(device=device).manual_seed(len(_layout(layout)) + shape[0])
     op = _random_op(shape, None, gen, device, offsets=_layout(layout))
-    _check_kernels(cuda_stencil_stored, op, gen, dtype, exact=True)
+    _check_kernels(op, gen, dtype, exact=True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -171,8 +171,7 @@ def test_b14_stored_on_galerkin_blocks_matches_plain(device, dtype):
                            galerkin_variant="collapsed")
     op = hier.operators[1].astype(dtype)
     nz, ny, _ = op.shape
-    before = (cuda_stencil_stored.halfsweep_local.launches,
-              cuda_stencil_stored.cuda_residual_local.launches)
+    before = cuda_smoothers.launches.copy()
     for zs in (slice(0, nz // 2), slice(nz // 2, nz)):
         for ys in (slice(0, ny // 2 + 1), slice(ny // 2 + 1, ny)):
             block = StencilOperator(op.coeffs[:, zs, ys].contiguous(), op.offsets)
@@ -182,13 +181,13 @@ def test_b14_stored_on_galerkin_blocks_matches_plain(device, dtype):
                             dtype=torch.float64).to(dtype)
             for color in (0, 1):
                 assert torch.equal(
-                    cuda_stencil_stored.halfsweep_local(block, x, b, color),
-                    cuda_stencil_stored.halfsweep_local_plain(block, x, b, color))
-            assert torch.equal(cuda_stencil_stored.cuda_residual_local(block, x, b),
-                               cuda_stencil_stored.residual_local_plain(block, x, b))
+                    cuda_smoothers.halfsweep_local(block, x, b, color),
+                    cuda_smoothers.halfsweep_local_plain(block, x, b, color))
+            assert torch.equal(cuda_smoothers.cuda_residual_local(block, x, b),
+                               cuda_smoothers.residual_local_plain(block, x, b))
     torch.cuda.synchronize()
-    assert (cuda_stencil_stored.halfsweep_local.launches - before[0],
-            cuda_stencil_stored.cuda_residual_local.launches - before[1]) == (8, 4)
+    assert cuda_smoothers.launches - before == {("stored", "halfsweep_local"): 8,
+                                                ("stored", "residual_local"): 4}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -205,7 +204,7 @@ def test_b12_hierarchy_levels_match_plain(device, dtype, variant):
     hier = build_hierarchy(t, build_level_descriptors(shape), 0.1, **kw)
     for op in hier.operators:
         if isinstance(op, StencilOperator):
-            _check_kernels(cuda_stencil_stored, op, gen, dtype, exact=True)
+            _check_kernels(op, gen, dtype, exact=True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -225,8 +224,7 @@ def test_b13_matches_plain(device, dtype, shape):
            build_hierarchy(t, build_level_descriptors(shape), 0.1).operators[0],
            _random_op(shape, 1, gen, device)]
     for op in ops:
-        _check_kernels(cuda_stencil2d, op, gen, dtype,
-                       exact=isinstance(op, StencilOperator))
+        _check_kernels(op, gen, dtype, exact=isinstance(op, StencilOperator))
 
 
 def test_wrappers_refuse_what_their_kernel_does_not_take(device):
@@ -236,18 +234,17 @@ def test_wrappers_refuse_what_their_kernel_does_not_take(device):
     x3 = torch.zeros(op3.shape, device=device, dtype=torch.float64)
     x2 = torch.zeros(op2.shape, device=device, dtype=torch.float64)
     with pytest.raises(ValueError):
-        cuda_stencil_stored.halfsweep(op2, x2, x2, 0)  # 2D
+        cuda_smoothers.halfsweep(_random_op((6, 7, 8), 3, gen, device), x3, x3, 0)  # r = 3
     with pytest.raises(ValueError):
-        cuda_stencil2d.halfsweep(_random_op((6, 7), 2, gen, device), x2, x2, 0)  # r = 2
+        cuda_smoothers.halfsweep(_random_op((6, 7), 2, gen, device), x2, x2, 0)  # 2D, r = 2
     with pytest.raises(ValueError):
-        cuda_stencil2d.cuda_residual(op3, x3, x3)  # 3D
+        cuda_smoothers.cuda_residual_local(op2, x2, x2)  # 2D has no shard-local form
     with pytest.raises(TypeError):
-        cuda_stencil_stored.cuda_residual(op3.astype(torch.float16), x3.half(), x3.half())
+        cuda_smoothers.cuda_residual(op3.astype(torch.float16), x3.half(), x3.half())
     with pytest.raises(ValueError):
-        cuda_stencil_stored.halfsweep(op3, x3.transpose(0, 2).contiguous().transpose(0, 2),
-                                      x3, 0)
+        cuda_smoothers.halfsweep(op3, x3.transpose(0, 2).contiguous().transpose(0, 2), x3, 0)
     with pytest.raises(ValueError):
-        cuda_stencil2d.halfsweep(op2, x2, x2.cpu(), 0)
+        cuda_smoothers.halfsweep(op2, x2, x2.cpu(), 0)
 
 
 def test_b12_b13_check_refuses_what_the_grid_does_not_take(device):
@@ -259,26 +256,26 @@ def test_b12_b13_check_refuses_what_the_grid_does_not_take(device):
     op126 = StencilOperator(torch.ones((126, 2, 3, 4), device=device), full + ((0, 0, 1),))
     x3 = torch.zeros((2, 3, 4), device=device)
     with pytest.raises(ValueError, match="exceed 125"):
-        cuda_stencil_stored.halfsweep(op126, x3, x3, 0)
+        cuda_smoothers.halfsweep(op126, x3, x3, 0)
     op3 = _random_op((2, 3, 4), 1, gen, device).astype(torch.float32)
     with pytest.raises(ValueError, match="!= operator"):
-        cuda_stencil_stored.cuda_residual(op3, x3[:, :2].contiguous(), x3[:, :2].contiguous())
+        cuda_smoothers.cuda_residual(op3, x3[:, :2].contiguous(), x3[:, :2].contiguous())
     for dtype, rows in ((torch.float32, 65535 * 8), (torch.float64, 65535 * 4)):
         tall = StencilOperator(torch.ones((19, 1, rows + 1, 1), device=device, dtype=dtype),
                                stencil_offsets(3, 1))
         xt = torch.zeros(tall.shape, device=device, dtype=dtype)
         with pytest.raises(ValueError, match="launch limit"):
-            cuda_stencil_stored.halfsweep(tall, xt, xt, 0)
+            cuda_smoothers.halfsweep(tall, xt, xt, 0)
         with pytest.raises(ValueError, match="launch limit"):
-            cuda_stencil_stored.halfsweep_local(tall, xt, xt, 0)
+            cuda_smoothers.halfsweep_local(tall, xt, xt, 0)
         tall2 = StencilOperator(tall.coeffs[:9, 0], stencil_offsets(2, 1))
         with pytest.raises(ValueError, match="launch limit"):
-            cuda_stencil2d.cuda_residual(tall2, xt[0], xt[0])
+            cuda_smoothers.cuda_residual(tall2, xt[0], xt[0])
         # one row fewer fits: the kernels run
         ok = StencilOperator(tall.coeffs[:9, 0, 1:].contiguous(), stencil_offsets(2, 1))
         xo = torch.zeros(ok.shape, device=device, dtype=dtype)
-        _check_bits(cuda_stencil2d.cuda_residual(ok, xo, xo),
-                    cuda_stencil2d.residual_plain(ok, xo, xo))
+        _check_bits(cuda_smoothers.cuda_residual(ok, xo, xo),
+                    cuda_smoothers.residual_plain(ok, xo, xo))
 
 
 def test_2d_transfers_on_cuda_take_the_plain_versions(device):
@@ -313,10 +310,12 @@ def test_solve_through_kernels_matches_plain(device, shape, kw, used, mixed_prec
     t = _tensor(shape, gen, device)
     b = torch.rand(shape, generator=gen, device=device) * 255
     base = dict(time_step=0.1, tolerance=1e-6, max_cycles=50, **kw)
-    for f in COUNTERS.values():
-        f.launches = 0
+    cuda_smoothers.launches.clear()
+    cuda_galerkin.cuda_galerkin_product.launches = 0
     res = mad_diffusion(b, t, config=MADConfig.cuda(mixed_precision, **base), device=device)
-    counts = {k: f.launches for k, f in COUNTERS.items()}
+    counts = {k: sum(cuda_smoothers.launches[key] for key in keys)
+              for k, keys in STENCIL.items()}
+    counts["b16"] = cuda_galerkin.cuda_galerkin_product.launches
     assert all(counts[k] > 0 for k in used), counts
     ref = mad_diffusion(b, t, config=MADConfig.cuda(mixed_precision, use_kernels=False,
                                                     **base), device=device)

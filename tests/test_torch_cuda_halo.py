@@ -22,12 +22,7 @@ import pytest
 import torch
 
 from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, stencil_offsets
-from multigridanisotropicdiffusion_tpu_torch.ops import (
-    cuda_smoothers,
-    cuda_stencil_stored,
-    cuda_transfer,
-    transfer,
-)
+from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers, cuda_transfer, transfer
 from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
 from multigridanisotropicdiffusion_tpu_torch.parallel.transfer import PROLONG, RESTRICT, _axis_plan
 
@@ -78,15 +73,15 @@ def test_b14_compressed_matches_plain(device, shape, dtype):
     planes, x, b = _inputs(shape, device, dtype, 10)
     planes[-1] = 8.0 + planes[-1].abs()
     op = CompressedDCAOperator(planes.to(dtype), 3)
-    before = (cuda_smoothers.halfsweep_local.launches, cuda_smoothers.cuda_residual_local.launches)
+    before = cuda_smoothers.launches.copy()
     for color in (0, 1):
         assert torch.equal(cuda_smoothers.halfsweep_local(op, x, b, color),
                            cuda_smoothers.halfsweep_local_plain(op, x, b, color))
     assert torch.equal(cuda_smoothers.cuda_residual_local(op, x, b),
                        cuda_smoothers.residual_local_plain(op, x, b))
     torch.cuda.synchronize()
-    assert (cuda_smoothers.halfsweep_local.launches - before[0],
-            cuda_smoothers.cuda_residual_local.launches - before[1]) == (2, 1)
+    assert cuda_smoothers.launches - before == {("compressed", "halfsweep_local"): 2,
+                                                ("compressed", "residual_local"): 1}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -97,14 +92,15 @@ def test_b14_stored_through_b12_matches_plain(device, shape, dtype):
     c = offsets.index((0, 0, 0))
     planes[c] = 30.0 + planes[c].abs()
     op = StencilOperator(planes.to(dtype), offsets)
-    before = cuda_stencil_stored.halfsweep_local.launches
+    before = cuda_smoothers.launches.copy()
     for color in (0, 1):
-        assert torch.equal(cuda_stencil_stored.halfsweep_local(op, x, b, color),
-                           cuda_stencil_stored.halfsweep_local_plain(op, x, b, color))
-    assert torch.equal(cuda_stencil_stored.cuda_residual_local(op, x, b),
-                       cuda_stencil_stored.residual_local_plain(op, x, b))
+        assert torch.equal(cuda_smoothers.halfsweep_local(op, x, b, color),
+                           cuda_smoothers.halfsweep_local_plain(op, x, b, color))
+    assert torch.equal(cuda_smoothers.cuda_residual_local(op, x, b),
+                       cuda_smoothers.residual_local_plain(op, x, b))
     torch.cuda.synchronize()
-    assert cuda_stencil_stored.halfsweep_local.launches - before == 2
+    assert cuda_smoothers.launches - before == {("stored", "halfsweep_local"): 2,
+                                                ("stored", "residual_local"): 1}
 
 
 def test_b14_wrappers_refuse_what_the_kernel_does_not_take(device):
@@ -115,7 +111,7 @@ def test_b14_wrappers_refuse_what_the_kernel_does_not_take(device):
     offsets = stencil_offsets(3, 2, drop_corners=False)
     op2 = StencilOperator(torch.zeros((len(offsets), 4, 5, 6), device=device), offsets)
     with pytest.raises(ValueError):
-        cuda_stencil_stored.halfsweep_local(op2, x, b, 0)
+        cuda_smoothers.halfsweep_local(op2, x, b, 0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

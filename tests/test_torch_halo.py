@@ -35,7 +35,7 @@ from multigridanisotropicdiffusion_tpu.ops.dca import assemble_dca as jassemble_
 from multigridanisotropicdiffusion_tpu.parallel import halo as jhalo
 from multigridanisotropicdiffusion_tpu.parallel.sharding import make_grid_mesh as jmesh
 from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, residual
-from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers, cuda_stencil_stored
+from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
 from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
 from multigridanisotropicdiffusion_tpu_torch.ops.smoothers import (
     chebyshev_smoother,
@@ -332,7 +332,7 @@ def _random_stored(shape, seed):
 def test_mask_local_shells_stored_matches_jax():
     shape = (4, 5, 6)
     op = _random_stored(shape, 3)
-    got = cuda_stencil_stored.mask_local_shells_stored(op).coeffs.numpy()
+    got = cuda_smoothers.mask_local_shells(op).coeffs.numpy()
     c = op.center_index
     offs = [o for k, o in enumerate(op.offsets) if k != c]
     want = op.coeffs.numpy().copy()
@@ -358,10 +358,10 @@ def test_stored_local_form_is_b12_border_skip():
     x, b = torch.as_tensor(rng.normal(size=shape)), torch.as_tensor(rng.normal(size=shape))
     for color in (0, 1):
         np.testing.assert_array_equal(
-            cuda_stencil_stored.halfsweep_local(op, x, b, color).numpy(),
-            cuda_stencil_stored.halfsweep_plain(op, x, b, color).numpy())
-    np.testing.assert_array_equal(cuda_stencil_stored.cuda_residual_local(op, x, b).numpy(),
-                                  cuda_stencil_stored.residual_plain(op, x, b).numpy())
+            cuda_smoothers.halfsweep_local(op, x, b, color).numpy(),
+            cuda_smoothers.halfsweep_plain(op, x, b, color).numpy())
+    np.testing.assert_array_equal(cuda_smoothers.cuda_residual_local(op, x, b).numpy(),
+                                  cuda_smoothers.residual_plain(op, x, b).numpy())
 
 
 def test_assembled_operator_masks_to_itself():

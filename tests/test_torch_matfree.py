@@ -26,7 +26,7 @@ from multigridanisotropicdiffusion_tpu_torch import MADConfig, mad_diffusion
 from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
 from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
 from multigridanisotropicdiffusion_tpu_torch.models.mad import build_hierarchy
-from multigridanisotropicdiffusion_tpu_torch.ops import compressed, dca, smoothers
+from multigridanisotropicdiffusion_tpu_torch.ops import compressed, cuda_smoothers, dca, smoothers
 from multigridanisotropicdiffusion_tpu_torch.ops.matfree import MatrixFreeDCAOperator
 from multigridanisotropicdiffusion_tpu_torch.utils.convert import (
     mad_config_from_jax,
@@ -91,7 +91,7 @@ def test_smoothers_match_jax(shape, spacing):
            jsmoothers.rb_gauss_seidel_sweep(jmf, jx, jb))
     _close(smoothers.chebyshev_smoother(mf, tx, tb), jsmoothers.chebyshev_smoother(jmf, jx, jb))
     # with kernels on: no stencil kernel for this operator, the plain sweep
-    assert not smoothers.has_kernel(mf)
+    assert not cuda_smoothers.kernel_takes(mf)
     _close(smoothers.make_smoother("gauss_seidel", use_kernels=True)(mf, tx, tb),
            jsmoothers.rb_gauss_seidel_sweep(jmf, jx, jb))
 

@@ -21,7 +21,6 @@ import torch
 from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
 from multigridanisotropicdiffusion_tpu_torch.core.stencil import compute_dtype
 from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers as cs
-from multigridanisotropicdiffusion_tpu_torch.ops import cuda_stencil_stored as css
 from multigridanisotropicdiffusion_tpu_torch.ops.compressed import CompressedDCAOperator
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
@@ -53,14 +52,14 @@ def test_launch_geometry_covers_every_cell_once(shape, dtype):
     zrun, (gx, gy, gz) = cs.launch_geometry(shape, dtype)
     assert 1 <= zrun <= max(nz, cs.MAX_RUN) and gz == -(-nz // zrun)
     assert min(zrun, nz) == zrun and (zrun >= min(cs.MIN_RUN, nz))
-    assert gy <= css.MAX_GRID_Y and gz <= cs.MAX_GRID_Z
+    assert gy <= cs.MAX_GRID_Y and gz <= cs.MAX_GRID_Z
     # the cells of the launch are the product of the three axes' indices:
     # each index of each axis once makes every cell once
-    assert (_axis_counts(nx, gx, css.TILE_X, css.VEC) == 1).all()
-    assert (_axis_counts(ny, gy, css.TILE_Y[dtype], 1) == 1).all()
+    assert (_axis_counts(nx, gx, cs.TILE_X, cs.VEC) == 1).all()
+    assert (_axis_counts(ny, gy, cs.TILE_Y[dtype], 1) == 1).all()
     assert (_axis_counts(nz, gz, zrun, 1) == 1).all()
     # no block lies wholly outside the field
-    assert (gx - 1) * css.TILE_X < nx and (gy - 1) * css.TILE_Y[dtype] < ny
+    assert (gx - 1) * cs.TILE_X < nx and (gy - 1) * cs.TILE_Y[dtype] < ny
     assert (gz - 1) * zrun < nz
 
 
@@ -91,7 +90,7 @@ def test_check_grid_refuses_what_the_grid_cannot_launch():
             cs.check_grid("t", shape, dtype)
     op = CompressedDCAOperator(torch.zeros((6, 4, 4)), 2)
     with pytest.raises(ValueError, match="3D"):
-        cs._check("t", op, torch.zeros((4, 4)), torch.zeros((4, 4)))
+        cs._check("t", op, torch.zeros((4, 4)), torch.zeros((4, 4)), local=True)
 
 
 # ---------------------------------------------------------------------------
@@ -105,17 +104,17 @@ def _staged_plane(xc, zz, y0, x0, rows):
     VEC, index q // VEC; zero outside the grid; NaN where nothing is
     staged."""
     nz, ny, nx = xc.shape
-    q = torch.arange(css.ROW)
-    gx = x0 + q - css.VEC
+    q = torch.arange(cs.ROW)
+    gx = x0 + q - cs.VEC
     gy = y0 - 1 + torch.arange(rows)
-    plane = torch.zeros((rows, css.ROW), dtype=xc.dtype)
+    plane = torch.zeros((rows, cs.ROW), dtype=xc.dtype)
     if 0 <= zz < nz:
         inside = ((gy >= 0) & (gy < ny))[:, None] & ((gx >= 0) & (gx < nx))[None, :]
         vals = xc[zz][gy.clamp(0, ny - 1)][:, gx.clamp(0, nx - 1)]
         plane = torch.where(inside, vals, plane)
-    plane[:, (q < css.VEC - 1) | (q > css.VEC + css.TILE_X)] = float("nan")
+    plane[:, (q < cs.VEC - 1) | (q > cs.VEC + cs.TILE_X)] = float("nan")
     stored = torch.zeros_like(plane)
-    stored[:, (q % css.VEC) * css.PHASE + q // css.VEC] = plane
+    stored[:, (q % cs.VEC) * cs.PHASE + q // cs.VEC] = plane
     return stored.reshape(-1)
 
 
@@ -125,27 +124,27 @@ def _emulate(op, x, b, color=None, local=False):
     cd = compute_dtype(x.dtype)
     nz, ny, nx = op.shape
     zrun, (gx, gy, gz) = cs.launch_geometry(op.shape, x.dtype)
-    ty = css.TILE_Y[x.dtype]
+    ty = cs.TILE_Y[x.dtype]
     planes, xc, bc = op.planes.to(cd), x.to(cd), b.to(cd)
     out = torch.full(op.shape, float("nan"), dtype=cd)
     writes = torch.zeros(op.shape, dtype=torch.int64)
-    w, lane, j = torch.meshgrid(torch.arange(ty), torch.arange(css.TILE_X // css.VEC),
-                                torch.arange(css.VEC), indexing="ij")
-    base = (w + 1) * css.ROW + lane
+    w, lane, j = torch.meshgrid(torch.arange(ty), torch.arange(cs.TILE_X // cs.VEC),
+                                torch.arange(cs.VEC), indexing="ij")
+    base = (w + 1) * cs.ROW + lane
     zero = torch.zeros((), dtype=cd)
     for bz in range(gz):
         for by in range(gy):
             for bx in range(gx):
-                y0, x0 = by * ty, bx * css.TILE_X
-                cy, cx = y0 + w, x0 + css.VEC * lane + j
+                y0, x0 = by * ty, bx * cs.TILE_X
+                cy, cx = y0 + w, x0 + cs.VEC * lane + j
                 cell = (cy < ny) & (cx < nx)
                 cy, cx, cj, cb = cy[cell], cx[cell], j[cell], base[cell]
                 for z in range(bz * zrun, min((bz + 1) * zrun, nz)):
                     ring = {dz: _staged_plane(xc, z + dz, y0, x0, ty + 2) for dz in (-1, 0, 1)}
 
                     def X(dz, dy, dx):
-                        off = torch.as_tensor([css.ring_offset(dy, dx, i)
-                                               for i in range(css.VEC)])
+                        off = torch.as_tensor([cs.ring_offset(dy, dx, i)
+                                               for i in range(cs.VEC)])
                         return ring[dz][cb + off[cj]]
 
                     cf = planes[:, z, cy, cx]

@@ -1,7 +1,7 @@
 """The host tap plan of the stored-operator stencil kernels (B12, B13's
 stored form), held bit for bit to ``core.stencil.offdiag_apply`` on the CPU.
 
-Each plan (``ops.cuda_stencil_stored.tap_plan``) is applied the way the
+Each plan (``ops.cuda_smoothers.tap_plan``) is applied the way the
 kernel applies it: x is staged tile by tile as the kernel stages it (a
 block's ``TILE_Y`` rows x ``TILE_X`` columns with their halo, zero outside
 the grid, each row's column phases apart), and each cell sums, over the
@@ -24,7 +24,7 @@ from multigridanisotropicdiffusion_tpu_torch.core.stencil import (
     offdiag_apply,
     stencil_offsets,
 )
-from multigridanisotropicdiffusion_tpu_torch.ops import cuda_stencil_stored as css
+from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers as cs
 from multigridanisotropicdiffusion_tpu_torch.ops import galerkin
 
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
@@ -66,40 +66,40 @@ def _staged_plane(xc, zz, y0, x0, rows, r):
     - 1; column q of a row (tile column q - VEC) at phase q mod VEC, index q
     // VEC; zero outside the grid; NaN where the kernel stages nothing."""
     nz, ny, nx = xc.shape
-    q = torch.arange(css.ROW)
-    gx = x0 + q - css.VEC
+    q = torch.arange(cs.ROW)
+    gx = x0 + q - cs.VEC
     gy = y0 - r + torch.arange(rows)
-    plane = torch.zeros((rows, css.ROW), dtype=xc.dtype)
+    plane = torch.zeros((rows, cs.ROW), dtype=xc.dtype)
     if 0 <= zz < nz:
         inside = ((gy >= 0) & (gy < ny))[:, None] & ((gx >= 0) & (gx < nx))[None, :]
         vals = xc[zz][gy.clamp(0, ny - 1)][:, gx.clamp(0, nx - 1)]
         plane = torch.where(inside, vals, plane)
-    staged = (q >= css.VEC - r) & (q < css.VEC + css.TILE_X + r)
+    staged = (q >= cs.VEC - r) & (q < cs.VEC + cs.TILE_X + r)
     plane[:, ~staged] = float("nan")
     stored = torch.zeros_like(plane)
-    stored[:, (q % css.VEC) * css.PHASE + q // css.VEC] = plane
+    stored[:, (q % cs.VEC) * cs.PHASE + q // cs.VEC] = plane
     return stored.reshape(-1)
 
 
 def _apply_plan(op, x):
     """``offdiag_apply`` as the kernels compute it from the tap plan."""
-    plan = css.tap_plan(op.offsets)
+    plan = cs.tap_plan(op.offsets)
     shape3 = (1,) * (3 - op.ndim) + op.shape
     coeffs = op.coeffs.reshape(len(op.offsets), *shape3)
     cd = compute_dtype(x.dtype)
     xc = x.to(cd).reshape(shape3)
     nz, ny, nx = shape3
-    ty_n = css.TILE_Y[x.dtype]
+    ty_n = cs.TILE_Y[x.dtype]
     r = op.radius
     rows = ty_n + 2 * r
     out = torch.zeros(shape3, dtype=cd)
-    ty, lane, j = torch.meshgrid(torch.arange(ty_n), torch.arange(css.TILE_X // css.VEC),
-                                 torch.arange(css.VEC), indexing="ij")
-    base = (ty + r) * css.ROW + lane
+    ty, lane, j = torch.meshgrid(torch.arange(ty_n), torch.arange(cs.TILE_X // cs.VEC),
+                                 torch.arange(cs.VEC), indexing="ij")
+    base = (ty + r) * cs.ROW + lane
     for z in range(nz):
         for y0 in range(0, ny, ty_n):
-            for x0 in range(0, nx, css.TILE_X):
-                gy, gx = y0 + ty, x0 + css.VEC * lane + j
+            for x0 in range(0, nx, cs.TILE_X):
+                gy, gx = y0 + ty, x0 + cs.VEC * lane + j
                 cell = (gy < ny) & (gx < nx)
                 gy, gx = gy[cell], gx[cell]
                 slots = {}
@@ -129,15 +129,15 @@ def test_plan_matches_offdiag_apply_bitwise(layout, shape, dtype):
 @pytest.mark.parametrize("layout", ["19", "27", "117", "125", "pruned", "2d"])
 def test_plan_lists_the_non_centre_taps_in_order(layout):
     offsets = _layout(layout)
-    plan = css.tap_plan(offsets)
+    plan = cs.tap_plan(offsets)
     assert plan.dtype == np.int32 and plan.flags.c_contiguous and not plan.flags.writeable
-    assert plan.shape == (len(offsets) - 1, 4 + css.VEC)
+    assert plan.shape == (len(offsets) - 1, 4 + cs.VEC)
     centre = offsets.index((0,) * len(offsets[0]))
     assert plan[:, 0].tolist() == [t for t in range(len(offsets)) if t != centre]
     for (t, dz, dy, dx, *_), off in zip(plan.tolist(), [o for o in offsets if any(o)]):
         assert (dz, dy, dx) == (0,) * (3 - len(off)) + tuple(off)
         assert offsets[t] == off
-    assert css.tap_plan(offsets) is plan  # cached per table
+    assert cs.tap_plan(offsets) is plan  # cached per table
     # the compiled tap counts of the solves' layouts
     counts = {"19": 18, "27": 26, "117": 116, "125": 124, "2d": 8}
     if layout in counts:
@@ -145,9 +145,9 @@ def test_plan_lists_the_non_centre_taps_in_order(layout):
 
 
 def test_check_grid_refuses_taller_fields():
-    css.check_grid("t", (1, 65535 * 8, 4), torch.float32)
-    css.check_grid("t", (65535 * 4, 4), torch.float64)
+    cs.check_grid("t", (1, 65535 * 8, 4), torch.float32)
+    cs.check_grid("t", (65535 * 4, 4), torch.float64)
     for shape, dtype in (((1, 65535 * 8 + 1, 4), torch.bfloat16),
                          ((65535 * 4 + 1, 4), torch.float64)):
         with pytest.raises(ValueError):
-            css.check_grid("t", shape, dtype)
+            cs.check_grid("t", shape, dtype)

@@ -188,23 +188,23 @@ def blocking_kernel_ops(mesh, spec):
     schedules the plain path: the padded block exchanged first
     (``exchange_halos``), then B14, then the slab fix read from that padded
     block."""
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
     from multigridanisotropicdiffusion_tpu_torch.parallel import halo as H
 
     def padded(x_pad):
         return lambda box: x_pad[tuple(slice(lo, hi) for lo, hi in box)]
 
     def sweep(op, x, b):
-        mod = H._kernel_module(op)
         flip = H._origin_parity(tuple(x.shape), mesh, spec)
         for color in (0, 1):
             x_pad = H.exchange_halos(x, mesh, spec)
-            x_new = mod.halfsweep_local(op, x, b, color ^ flip)
+            x_new = cuda_smoothers.halfsweep_local(op, x, b, color ^ flip)
             x = H._halfsweep_slab_fix(op, x_new, x, padded(x_pad), b, color, mesh, spec)
         return x
 
     def res(op, x, b):
         x_pad = H.exchange_halos(x, mesh, spec)
-        r = H._kernel_module(op).cuda_residual_local(op, x, b)
+        r = cuda_smoothers.cuda_residual_local(op, x, b)
         return H._residual_slab_fix(op, r, x, padded(x_pad), b, mesh, spec)
 
     return sweep, res
@@ -537,7 +537,7 @@ def cuda_worker(rank, world, store, out, backend):
     spec = ("x", None, None)
     op_l = shard_operator(op, mesh, spec=spec)
     x_l, b_l = shard_field(x, mesh, spec=spec), shard_field(b, mesh, spec=spec)
-    cuda_smoothers.halfsweep_local.launches = cuda_smoothers.cuda_residual_local.launches = 0
+    cuda_smoothers.launches.clear()
     results = {
         "sweep": gather_level(H.make_halo_kernel_rbgs_sweep(mesh, spec)(op_l, x_l, b_l),
                               mesh, spec),
@@ -552,8 +552,8 @@ def cuda_worker(rank, world, store, out, backend):
     res = mad_diffusion(image, sol_t, config=cfg, mesh=mesh, min_local=4)
     results["solve"] = gather_field(res.output, mesh)
     results["cycles"] = res.num_cycles
-    launches = torch.tensor([cuda_smoothers.halfsweep_local.launches,
-                             cuda_smoothers.cuda_residual_local.launches])
+    launches = torch.tensor([cuda_smoothers.launches["compressed", "halfsweep_local"],
+                             cuda_smoothers.launches["compressed", "residual_local"]])
     results["launches"] = torch.stack(
         [t.to(device) for t in _gather_small(launches.to(device), world)]).cpu()
     if rank == 0:
