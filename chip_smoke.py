@@ -27,8 +27,10 @@ Phases, one line or more each; any failure exits non-zero:
    prolongation and replicate padding plus a stride-2 ``F.conv3d`` with the
    ``[1, 3, 3, 1] / 8`` product kernel for the restriction (each checked
    against the plain version in float32; cuDNN's TF32 off).  The
-   stencil kernel B1/B2 is held to its plain versions' bytes at every level,
-   in float32, bfloat16 and (checked, not timed) float64; the
+   stencil kernel B1/B2 and the fused sweep B17 are held to their plain
+   versions' bytes at every level, in float32, bfloat16 and (checked, not
+   timed) float64, B17 timed beside the two half-sweep launches it
+   replaces; the
    restriction bit for bit to its plain version (the single volume
    and the batch of six tensor planes), and the prolongation's add form
    ``x + P e`` bit for bit to ``x + cuda_prolong(e)``, timed beside those
@@ -37,8 +39,10 @@ Phases, one line or more each; any failure exits non-zero:
    direct solve, and the float32 + bf16 path on the same input;
 5. MAD main path: ``mad_diffusion`` at 512^3 with ``MADConfig.cuda()`` to a
    relative residual of 1e-6, with the solve kernels' launch counts read
-   from that run; then the same inputs with ``use_kernels=False``, which
-   must agree to 1e-4 relative L2;
+   from that run (every sweep of the compressed operator one B17 launch:
+   ``stencil_sweep`` counts them, ``stencil_halfsweep`` reads 0 on the main
+   paths); then the same inputs with ``use_kernels=False``, which must agree
+   to 1e-4 relative L2;
 6. VED main path: ``ved(vol, config=VEDConfig.cuda(), device="cuda")`` on a
    512^3 float32 tube phantom (5 scales, 8 z slabs, 5 diffusion steps), with
    all nine kernels' launch counts read from that run; every step must
@@ -120,7 +124,7 @@ Phase 3 ends with B16, the Galerkin product: levels 1 and 2 of the 512^3
 collapsed chain (the compressed level-0 operator -> 256^3, that level's 27
 planes -> 128^3) against the eager path on the same planes, within 1e-6 of
 the largest diagonal value, both timed.
-The line before the last is ``{"kernels": [...]}``, 22 rows (name, route, source, the
+The line before the last is ``{"kernels": [...]}``, 23 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
 function must move over 3.35 TB/s and its float operations over 67 TFLOP/s,
@@ -129,11 +133,13 @@ float32 at the shape in the row; ``conv_z`` also gives the main path's 82 ->
 sigma 0.3's non-zero taps reach and whose library call is one
 ``F.conv3d``; ``hessian_vesselness`` (B15, which replaces no TPU kernel:
 "none: XLA") gives its first scale as ``first_ms`` and its four cases on
-a 64-plane slab, first and select in float32 and bfloat16, as ``slab``);
+a 64-plane slab, first and select in float32 and bfloat16, as ``slab``;
+``stencil_sweep`` (B17) gives the two half-sweep launches it replaces as
+``pair_ms``, its bound one pass of the half-sweeps' bytes);
 the last line is ``{"ok": true, "device":
 {...}}``.
 
-Tolerances: B1/B2, B3 (the restriction), the prolongation's add form, B6,
+Tolerances: B1/B2, B17, B3 (the restriction), the prolongation's add form, B6,
 B10, B12, B13's stored form and B15 bit for bit, B14 with ``torch.equal``; otherwise float32 max |kernel - plain| <= 1e-5 max |plain| (the
 sums may run in another order); bfloat16 |kernel - plain| <= one bf16 ulp of each plain
 value (both compute in float32 and round once), with the float32 bound as a
@@ -211,6 +217,11 @@ KERNELS = {
         "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_compressed.cu",
         "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
         "stencil_residual f32",
+    ),
+    "stencil_sweep": (
+        "multigridanisotropicdiffusion_tpu_torch/csrc/stencil_compressed.cu",
+        "multigridanisotropicdiffusion_tpu/ops/pallas_smoothers.py:386",
+        "stencil_sweep f32",
     ),
     "restrict3d": (
         "multigridanisotropicdiffusion_tpu_torch/csrc/transfer.cu",
@@ -313,8 +324,9 @@ KERNELS = {
         "galerkin_product f32", GALERKIN_LEVELS[0],
     ),
 }
-#: the kernels of the 3D compressed solve and of the VED call
-STENCIL_3D = ("stencil_halfsweep", "stencil_residual", "restrict3d", "prolong3d",
+#: the kernels of the 3D compressed solve and of the VED call: each sweep
+#: of the compressed operator is one B17 launch
+STENCIL_3D = ("stencil_sweep", "stencil_residual", "restrict3d", "prolong3d",
               "assemble_compressed")
 VED_KERNELS = STENCIL_3D + ("conv_z", "conv_yx", "fd_vesselness", "tensor_assembly")
 #: the kernels of the gaussian_derivative VED call
@@ -540,6 +552,8 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
                    cuda_smoothers.halfsweep_plain(op, x, b, color))
     check_bits(f"stencil_residual f64 {tag}", cuda_smoothers.cuda_residual(op, x, b),
                cuda_smoothers.residual_plain(op, x, b))
+    check_bits(f"stencil_sweep f64 {tag}", cuda_smoothers.rbgs_sweep(op, x, b),
+               cuda_smoothers.rbgs_sweep_plain(op, x, b))
     del op, x, b
     for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         op, x, b = op32.astype(dtype), x32.to(dtype), b32.to(dtype)
@@ -550,6 +564,16 @@ def check_level(tag, shape, spacing, next_centering, gen, errs, timings):
         timed(f"stencil_residual {suffix}",
               lambda: cuda_smoothers.cuda_residual(op, x, b),
               lambda: cuda_smoothers.residual_plain(op, x, b), compare=check_bits)
+        # B17, the fused sweep, beside the two half-sweep launches it
+        # replaces (timed in the library slot), whose bytes it gives
+        check_bits(f"stencil_sweep {suffix} {tag} vs two half-sweeps",
+                   cuda_smoothers.rbgs_sweep(op, x, b),
+                   cuda_smoothers.halfsweep(op, cuda_smoothers.halfsweep(op, x, b, 0), b, 1))
+        timed(f"stencil_sweep {suffix}",
+              lambda: cuda_smoothers.rbgs_sweep(op, x, b),
+              lambda: cuda_smoothers.rbgs_sweep_plain(op, x, b),
+              lambda: cuda_smoothers.halfsweep(op, cuda_smoothers.halfsweep(op, x, b, 0), b, 1),
+              compare=check_bits)
         if next_centering is not None:
             cent = next_centering
             e = transfer.restrict_plain(x, cent)
@@ -1549,6 +1573,7 @@ def phase_kernel_less(gen):
 #: these ``(form, pass)`` keys of ``ops.cuda_smoothers.launches``
 STENCIL_LAUNCHES = {
     "stencil_halfsweep": (("compressed", "halfsweep"),),
+    "stencil_sweep": (("compressed", "sweep"),),
     "stencil_residual": (("compressed", "residual"),),
     "stencil_stored_halfsweep": (("stored", "halfsweep"),),
     "stencil_stored_residual": (("stored", "residual"),),
@@ -2136,6 +2161,7 @@ def phase_distributed():
 #: two fine planes)
 SOLVE_WORK = {
     "stencil_halfsweep": (13, 29),
+    "stencil_sweep": (13, 29),
     "stencil_residual": (13, 30),
     "restrict3d": (1 + 1 / 8, 21),
     "prolong3d": (1 / 8 + 1, 8),
@@ -2209,10 +2235,13 @@ def main():
         b_ms, b_by = bound_ms(nbytes, nops)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[(case, tag)],
+            "launches": launches.get(name, 0), "max_abs_err": errs[(case, tag)],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms, "shape": list(shape), "dtype": dtype, "case": tag,
         }
+        if name == "stencil_sweep":
+            # the two half-sweep launches it replaces, in the library slot
+            row["pair_ms"], row["library_ms"] = lib_ms, None
         if name == "conv_z":
             # the main path's launches: one z slab of the 512^3 VED call
             slab = ("conv_z f32", "82->66 slab")
@@ -2237,6 +2266,8 @@ def main():
             work16 = (nbytes / 2, nops) if name in SOLVE_WORK else work[bf16][:2]
             row["bf16"] = dict(zip(("ms", "plain_ms", "library_ms"), timings[bf16]),
                                bound_ms=bound_ms(*work16)[0], max_abs_err=errs[bf16])
+            if name == "stencil_sweep":
+                row["bf16"]["pair_ms"] = row["bf16"].pop("library_ms")
         if name == "prolong3d":
             # the add form x + P e, the V-cycle's correction; library_ms is
             # the two launches it replaces, x + cuda_prolong(e)

@@ -12,7 +12,7 @@ Differences from the JAX package:
   the relative residual).  The precision window of the defect cycles is a
   Python ``if`` on that same host value.
 * ``MADConfig.use_kernels`` routes the solve through the CUDA kernels: the
-  stencil half-sweeps and residuals of every operator the JAX package sends
+  stencil sweeps and residuals of every operator the JAX package sends
   to Pallas (``ops.cuda_smoothers``, whose ``kernel_takes`` is JAX's
   ``pallas_compatible``: the compressed operator in 2D and 3D, 3D stored
   operators of radius 1-2, 2D stored radius 1), the 3D

@@ -13,7 +13,9 @@ every operator, dispatching on its form (:data:`ENTRIES`):
 * ``compressed`` (B1/B2): the 3D compressed DCA operator's ten planes, with
   the run of z planes of its launch geometry (:func:`launch_geometry`: a
   block owns ``TILE_Y[dtype]`` rows x ``TILE_X`` columns and marches down a
-  run of z planes, a lane owning ``VEC`` consecutive cells of a row);
+  run of z planes, a lane owning ``VEC`` consecutive cells of a row).
+  :func:`rbgs_sweep` runs its whole sweep as one launch (``sweep``, B17),
+  which reads the planes and b once where two half-sweeps read them twice;
 * ``stored`` (B12): a 3D stored operator of radius 1 or 2 (the 19-plane
   stored DCA operator, collapsed Galerkin levels of 27 planes, exact ones of
   up to 125), its ``(K, Z, Y, X)`` planes in their own order with the
@@ -40,7 +42,8 @@ plain versions' bytes (the shard-local forms: their values), B13's
 compressed form aside, which keeps tolerances.
 
 :data:`launches` counts kernel launches by ``(form, pass)``, the pass one of
-``halfsweep``, ``residual``, ``halfsweep_local`` and ``residual_local``.
+``halfsweep``, ``sweep`` (the compressed 3D form's fused sweep), ``residual``,
+``halfsweep_local`` and ``residual_local``.
 """
 
 from __future__ import annotations
@@ -90,6 +93,14 @@ MIN_RUN, MAX_RUN = 4, 64
 #: blocks a launch may have along y (``ceil(Y / TILE_Y)``) and along z
 MAX_GRID_Y = 65535
 MAX_GRID_Z = 65535
+#: the fused sweep's plan (one block an SM at a time): its red pass also
+#: covers the planes before and after a block's run, so runs are long (the
+#: two extra planes a small share of the reads) and blocks few, about one
+#: wave where the field allows: on an H100 a 512^3 sweep took 6% less time
+#: in runs of 256 planes than of 32, a 128^3 one 15% less in runs of 16 than
+#: of 8 (PERF.md)
+SWEEP_TARGET_BLOCKS = 128
+SWEEP_MIN_RUN, SWEEP_MAX_RUN = 8, 256
 
 
 def kernel_takes(op, max_radius: int = 2) -> bool:
@@ -198,15 +209,20 @@ def residual_local_plain(op, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
-def launch_geometry(shape, dtype: torch.dtype) -> tuple[int, tuple[int, int, int]]:
+def launch_geometry(shape, dtype: torch.dtype,
+                    sweep: bool = False) -> tuple[int, tuple[int, int, int]]:
     """``(planes per block, grid)`` of a compressed launch on a ``(Z, Y,
     X)`` field: one block per ``TILE_Y[dtype]`` rows x ``TILE_X`` columns x
     run of z planes, the runs as long as about ``TARGET_BLOCKS`` blocks in
     all make them, within ``[MIN_RUN, MAX_RUN]`` (and at most ``Z``), and
-    longer where ``Z`` would need more than ``MAX_GRID_Z`` runs."""
+    longer where ``Z`` would need more than ``MAX_GRID_Z`` runs.  With
+    ``sweep``, the fused sweep's: ``SWEEP_TARGET_BLOCKS`` within
+    ``[SWEEP_MIN_RUN, SWEEP_MAX_RUN]``."""
+    target, lo, hi = ((SWEEP_TARGET_BLOCKS, SWEEP_MIN_RUN, SWEEP_MAX_RUN) if sweep
+                      else (TARGET_BLOCKS, MIN_RUN, MAX_RUN))
     nz, ny, nx = (int(n) for n in shape)
     gx, gy = -(-nx // TILE_X), -(-ny // TILE_Y[dtype])
-    zrun = min(max(-(-nz * gx * gy // TARGET_BLOCKS), MIN_RUN), MAX_RUN)
+    zrun = min(max(-(-nz * gx * gy // target), lo), hi)
     if -(-nz // zrun) > MAX_GRID_Z:
         zrun = -(-nz // MAX_GRID_Z)
     zrun = max(min(zrun, nz), 1)
@@ -297,7 +313,8 @@ def _launch(name: str, op, x: torch.Tensor, b: torch.Tensor, *color) -> torch.Te
     form = _check(name, op, x, b, local=name.endswith("_local"))
     if form.endswith("compressed"):
         entry, planes = f"{ENTRIES[form]}_{name}", op.planes
-        plan = (launch_geometry(op.shape, x.dtype)[0],) if form == "compressed" else ()
+        plan = ((launch_geometry(op.shape, x.dtype, name == "sweep")[0],)
+                if form == "compressed" else ())
     else:
         taps = tap_plan(op.offsets)
         entry = f"{ENTRIES[form]}_{name.removesuffix('_local')}"
@@ -326,7 +343,13 @@ def halfsweep(op, x: torch.Tensor, b: torch.Tensor, color: int) -> torch.Tensor:
 
 
 def rbgs_sweep(op, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One red-black Gauss-Seidel sweep: red half-sweep, then black."""
+    """One red-black Gauss-Seidel sweep, red then black, out of place: on
+    the 3D compressed operator one launch, bit for bit the two half-sweeps;
+    on the other forms the two half-sweeps."""
+    if x.device.type == "cpu":
+        return rbgs_sweep_plain(op, x, b)
+    if _form(op) == "compressed":
+        return _launch("sweep", op, x, b)
     for color in (0, 1):
         x = halfsweep(op, x, b, color)
     return x

@@ -43,9 +43,9 @@ Cases, float32 and bfloat16 storage, inputs made on the device from seed 0:
 * ``fill_``: a plain write of a 512^3 field, what the card's memory takes
   for the bytes the prolongation writes (a yardstick, not a kernel of the
   package);
-* ``compressed``: B1's half-sweeps (both colours) and B2's residual on the
-  10-plane compressed DCA operator at 512^3, 256^3 and 128^3 (the main
-  path's levels 0-2, each assembled from its own tensor field as
+* ``compressed``: B1's half-sweeps (both colours), B17's fused sweep and
+  B2's residual on the 10-plane compressed DCA operator at 512^3, 256^3 and
+  128^3 (the main path's levels 0-2, each assembled from its own tensor field as
   ``chip_smoke.py``'s phase 3 does); ``compressed_local``: one rank's (256,
   512, 512) block of the 512^3 operator through the shard-local form (B14);
 * ``stored``: B12's half-sweeps (both colours) and residual on the 512^3
@@ -470,6 +470,10 @@ def main(argv=None) -> int:
             calls = [(f"halfsweep{c}", lambda c=c: sweep(op, x, b, c),
                       lambda c=c: sweep_plain(op, x, b, c)) for c in (0, 1)]
             calls.append(("residual", lambda: resid(op, x, b), lambda: resid_plain(op, x, b)))
+            if prefix == "compressed":
+                # B17: the whole sweep in one launch, one pass's bytes as its bound
+                calls.append(("sweep", lambda: cs.rbgs_sweep(op, x, b),
+                              lambda: cs.rbgs_sweep_plain(op, x, b)))
             for what, fn, plain in calls:
                 name = f"{prefix} {tag} (K={k}) {what}"
                 if args.only and not name.startswith(tuple(args.only)):

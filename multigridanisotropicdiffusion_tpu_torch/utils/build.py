@@ -63,6 +63,9 @@ SIGNATURES = {
     "mad_stencil_halfsweep_local": (_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_int,
                                     _STREAM),
     "mad_stencil_residual_local": (_P, _P, _P, _P, _I, _I, _I, _I, _STREAM),
+    # the fused red-black sweep: planes, x, b, out, nz, ny, nx, planes per
+    # block (``launch_geometry(..., sweep=True)``), stream
+    "mad_stencil_sweep": (_P, _P, _P, _P, _I, _I, _I, _I, _STREAM),
     # in, out, batch, in dims (3), out dims (3), starts (3), weights (3), stream
     "mad_restrict3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),
     "mad_prolong3d": (_P, _P, _I) + (_I,) * 6 + (_P,) * 6 + (_STREAM,),

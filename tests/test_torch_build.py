@@ -76,6 +76,20 @@ def test_the_b16_entry_point_is_declared_for_float32_and_float64():
     assert cuda_galerkin.ROWS == 2 * cuda_galerkin.TILE_Y + 2
 
 
+def test_the_fused_sweep_entry_point_is_declared():
+    """The compressed operator's fused red-black sweep (B17): declared in
+    its source with the ctypes argument list, for every storage type, with
+    the residual's arguments (planes, x, b, out, the shape, planes per
+    block, stream)."""
+    text = (build.CSRC_DIR / "stencil_compressed.cu").read_text()
+    name = "mad_stencil_sweep"
+    assert f'extern "C" int {name}_##SUF(' in text
+    assert _entry_points()[name] == list(build.SIGNATURES[name])
+    assert build.SIGNATURES[name] == build.SIGNATURES["mad_stencil_residual"]
+    assert name not in build.ENTRY_DTYPES
+    assert "MAD_FOR_EACH_TYPE(MAD_STENCIL_ENTRY)" in text
+
+
 def test_every_storage_type_is_instantiated():
     text = (build.CSRC_DIR / "common.cuh").read_text()
     suffixes = re.findall(r"^\s*MACRO\((\w+), \w+\)", text, re.MULTILINE)

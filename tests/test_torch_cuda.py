@@ -4,11 +4,12 @@ Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without one;
 ``python -m pytest -m cuda tests/test_torch_cuda.py`` runs them on a machine
 with a card.  They mirror the kernel phase of ``chip_smoke.py`` at the
 (69, 77, 69) hierarchy's levels (vertex centring) and a small all-cell
-pair.  The stencil kernels (B1/B2) and the restriction round as their
-plain versions do: the half-sweeps and the residual are held to the plain
-versions' bytes in every dtype, also on ragged shapes (rows that are not
-whole 4-cell vectors, fewer rows than a tile, one or two planes), the
-restriction to ``torch.equal``.  Tolerances elsewhere: float64 1e-12 and
+pair.  The stencil kernels (B1/B2, and B17, the fused red-black sweep) and
+the restriction round as their plain versions do: the half-sweeps, the
+sweep and the residual are held to the plain versions' bytes in every
+dtype, also on ragged shapes (rows that are not whole 4-cell vectors, fewer
+rows than a tile, one or two planes), the restriction to ``torch.equal``;
+a whole solve through B17 equals the one through two half-sweeps a sweep.  Tolerances elsewhere: float64 1e-12 and
 float32 1e-5 of the largest reference value (the kernels sum in another
 order than the plain versions); bf16 one bf16 ulp of each reference value
 (both compute in float32 and round once), with the float32 floor for values
@@ -37,9 +38,16 @@ DTYPES = [torch.float64, torch.float32, torch.bfloat16]
 #: a tile's rows, Z = 1 and 2
 RAGGED = [(1, 5, 3), (2, 9, 130), (3, 7, 127), (5, 17, 4), (2, 3, 133), (9, 10, 64)]
 INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-#: the B1/B2 keys of ``cuda_smoothers.launches``, and the other kernels'
-#: wrappers, which count on ``.launches``
-STENCIL = (("compressed", "halfsweep"), ("compressed", "residual"))
+#: the B1/B2 keys of ``cuda_smoothers.launches``, B17's, and the other
+#: kernels' wrappers, which count on ``.launches``
+HALF = (("compressed", "halfsweep"), ("compressed", "residual"))
+SWEEP = ("compressed", "sweep")
+#: the fused sweep's shapes beside RAGGED: a run boundary (17 and 20 planes
+#: in runs of 8) and tile boundaries in y (9, 17 rows) and x (130, 257
+#: columns), rows that are not whole vectors, a single plane, fewer planes
+#: than a run, and the coarsest DCA levels
+SWEEP_SHAPES = [(17, 9, 130), (20, 17, 257), (9, 10, 67), (1, 20, 140), (5, 17, 260),
+                (8, 8, 8), (16, 16, 16), (33, 70, 260)]
 COUNTERS = (cuda_transfer.cuda_restrict, cuda_transfer.cuda_prolong,
             cuda_assemble.cuda_assemble_compressed_dca)
 
@@ -136,7 +144,69 @@ def test_stencil_ragged_shapes_bit_for_bit(device, shape, dtype):
         _check_bits(cuda_smoothers.cuda_residual(op, xin, b),
                     cuda_smoothers.residual_plain(op, x, b))
     torch.cuda.synchronize()
-    assert cuda_smoothers.launches - before == dict(zip(STENCIL, (4, 2)))
+    assert cuda_smoothers.launches - before == dict(zip(HALF, (4, 2)))
+
+
+def _random_compressed(shape, dtype, device, gen):
+    """Random planes on every cell, the mixed ones too (so that the sweep's
+    same-colour coupling matters), a dominant diagonal; x and b."""
+    planes = torch.randn((10, *shape), generator=gen, device=device, dtype=torch.float64)
+    planes[-1] = 8.0 + planes[-1].abs()
+    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float64) * 10.0
+    b = torch.randn(shape, generator=gen, device=device, dtype=torch.float64) * 10.0
+    return CompressedDCAOperator(planes.to(dtype), 3), x.to(dtype), b.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES + RAGGED, ids=str)
+def test_fused_sweep_bit_for_bit(device, shape, dtype):
+    """B17: ``rbgs_sweep`` on the compressed operator is one launch, and its
+    output is the bytes of ``rbgs_sweep_plain`` and of the two half-sweep
+    launches, with x aligned and not (the scalar loads)."""
+    gen = torch.Generator(device=device).manual_seed(7 * sum(shape))
+    op, x, b = _random_compressed(shape, dtype, device, gen)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+    shifted = flat[1:].view(shape)
+    shifted.copy_(x)
+    want = cuda_smoothers.rbgs_sweep_plain(op, x, b)
+    for xin in (x, shifted):
+        before = cuda_smoothers.launches.copy()
+        got = cuda_smoothers.rbgs_sweep(op, xin, b)
+        torch.cuda.synchronize()
+        assert cuda_smoothers.launches - before == {SWEEP: 1}
+        _check_bits(got, want)
+        pair = cuda_smoothers.halfsweep(op, cuda_smoothers.halfsweep(op, xin, b, 0), b, 1)
+        _check_bits(got, pair)
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_solve_with_fused_sweeps_equals_the_two_launch_path(device, monkeypatch,
+                                                            mixed_precision):
+    """A whole ``mad_diffusion`` call through B17 against the same call with
+    every sweep as two half-sweep launches: the same output bits, cycles and
+    residual histories; the first launches no compressed half-sweep."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    shape = (40, 36, 33)
+    t = _tensor(shape, device, gen)
+    b = torch.rand(shape, generator=gen, device=device) * 255
+    cfg = MADConfig.cuda(mixed_precision, time_step=0.1, tolerance=1e-6, max_cycles=50)
+    cuda_smoothers.launches.clear()
+    res = mad_diffusion(b, t, config=cfg, device=device)
+    fused = cuda_smoothers.launches.copy()
+    assert fused[SWEEP] > 0 and fused["compressed", "halfsweep"] == 0
+
+    def two_launches(op, x, rhs):
+        return cuda_smoothers.halfsweep(op, cuda_smoothers.halfsweep(op, x, rhs, 0), rhs, 1)
+
+    monkeypatch.setattr(cuda_smoothers, "rbgs_sweep", two_launches)
+    cuda_smoothers.launches.clear()
+    ref = mad_diffusion(b, t, config=cfg, device=device)
+    assert cuda_smoothers.launches["compressed", "halfsweep"] == 2 * fused[SWEEP]
+    assert cuda_smoothers.launches[SWEEP] == 0
+    assert torch.equal(res.num_cycles, ref.num_cycles)
+    _check_bits(res.residual_history, ref.residual_history)
+    _check_bits(res.final_residual, ref.final_residual)
+    _check_bits(res.output, ref.output)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -223,7 +293,8 @@ def test_solve_through_kernels_matches_plain(device, mixed_precision):
         f.launches = 0
     res = mad_diffusion(b, t, config=cfg, device=device)
     assert all(f.launches > 0 for f in COUNTERS)
-    assert all(cuda_smoothers.launches[k] > 0 for k in STENCIL)
+    assert all(cuda_smoothers.launches[k] > 0 for k in (SWEEP, HALF[1]))
+    assert cuda_smoothers.launches[HALF[0]] == 0
     ref = mad_diffusion(b, t, config=MADConfig.cuda(
         mixed_precision, use_kernels=False, time_step=0.1, tolerance=1e-6,
         max_cycles=50), device=device)

@@ -44,7 +44,7 @@ INTS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
 #: the stencil kernels' counts: the sum of these ``cuda_smoothers.launches``
 #: keys
 STENCIL = {
-    "b1_halfsweep": (("compressed", "halfsweep"),),
+    "b17_sweep": (("compressed", "sweep"),),
     "b12_halfsweep": (("stored", "halfsweep"),),
     "b12_residual": (("stored", "residual"),),
     "b13_halfsweep": (("2d_compressed", "halfsweep"), ("2d_stored", "halfsweep")),
@@ -294,10 +294,10 @@ def test_2d_transfers_on_cuda_take_the_plain_versions(device):
 
 @pytest.mark.parametrize("shape,kw,used", [
     ((40, 36, 33), dict(coarse_operator="galerkin"),
-     ("b1_halfsweep", "b12_halfsweep", "b12_residual", "b16")),
+     ("b17_sweep", "b12_halfsweep", "b12_residual", "b16")),
     ((40, 36, 33), dict(coarse_operator="galerkin", galerkin_variant="exact",
                         galerkin_prune_tol=1e-4),
-     ("b1_halfsweep", "b12_halfsweep", "b12_residual", "b16")),
+     ("b17_sweep", "b12_halfsweep", "b12_residual", "b16")),
     ((40, 36, 33), dict(operator_repr="stored"), ("b12_halfsweep", "b12_residual")),
     ((200, 193), {}, ("b13_halfsweep", "b13_residual")),
     ((200, 193), dict(coarse_operator="galerkin"), ("b13_halfsweep", "b13_residual")),

@@ -77,6 +77,54 @@ def test_launch_geometry_fills_the_card():
     assert zrun == 65 and grid == (1, 1, 64527)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", ODD + LEVEL_SHAPES, ids=str)
+def test_sweep_geometry_covers_every_cell_once(shape, dtype):
+    """The fused sweep's plan (B17): the tile of the half-sweeps, runs of
+    ``[SWEEP_MIN_RUN, SWEEP_MAX_RUN]`` planes (at most ``Z``), each cell in
+    one block, a grid within the launch limits."""
+    nz, ny, nx = shape
+    zrun, (gx, gy, gz) = cs.launch_geometry(shape, dtype, sweep=True)
+    assert 1 <= zrun <= max(nz, cs.SWEEP_MAX_RUN) and gz == -(-nz // zrun)
+    assert zrun <= nz and zrun >= min(cs.SWEEP_MIN_RUN, nz)
+    assert gy <= cs.MAX_GRID_Y and gz <= cs.MAX_GRID_Z
+    assert (_axis_counts(nx, gx, cs.TILE_X, cs.VEC) == 1).all()
+    assert (_axis_counts(ny, gy, cs.TILE_Y[dtype], 1) == 1).all()
+    assert (_axis_counts(nz, gz, zrun, 1) == 1).all()
+    assert (gx - 1) * cs.TILE_X < nx and (gy - 1) * cs.TILE_Y[dtype] < ny
+    assert (gz - 1) * zrun < nz
+
+
+def test_sweep_geometry_at_the_solves_sizes():
+    """Longer runs than the half-sweeps': the two planes a block's red pass
+    adds at the ends of its run are a small share of its reads, and the
+    deep field's runs still lengthen so that the grid's z extent stays a
+    launch's."""
+    assert cs.launch_geometry((512,) * 3, torch.float32, sweep=True) == (256, (4, 64, 2))
+    assert cs.launch_geometry((512,) * 3, torch.bfloat16, sweep=True) == (256, (4, 64, 2))
+    assert cs.launch_geometry((256,) * 3, torch.bfloat16, sweep=True) == (128, (2, 32, 2))
+    assert cs.launch_geometry((128,) * 3, torch.float32, sweep=True) == (16, (1, 16, 8))
+    assert cs.launch_geometry((64,) * 3, torch.float32, sweep=True) == (8, (1, 8, 8))
+    assert cs.launch_geometry((8,) * 3, torch.float32, sweep=True) == (8, (1, 1, 1))
+    assert cs.launch_geometry((5, 17, 260), torch.float64, sweep=True) == (5, (3, 5, 1))
+    zrun, grid = cs.launch_geometry((65535 * 256 + 1, 1, 1), torch.float32, sweep=True)
+    assert zrun == 257 and grid == (1, 1, 65281)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_rbgs_sweep_on_cpu_is_the_plain_sweep(dtype):
+    """On CPU tensors ``rbgs_sweep`` is the plain sweep, red then black,
+    bit for bit, and launches nothing."""
+    for shape in ((1, 5, 3), (2, 9, 130), (5, 10, 133)):
+        op, x, b = _inputs(shape, dtype, seed=3 * sum(shape))
+        want = cs.halfsweep_plain(op, cs.halfsweep_plain(op, x, b, 0), b, 1)
+        before = cs.launches.copy()
+        got = cs.rbgs_sweep(op, x, b)
+        assert cs.launches == before
+        assert got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(cs.rbgs_sweep_plain(op, x, b)), _bits(want))
+
+
 def test_check_grid_refuses_what_the_grid_cannot_launch():
     """``_check``'s grid test: the rows of a field beyond 65535 tiles (the
     z extent never is: runs lengthen instead)."""

@@ -249,8 +249,11 @@ def test_use_kernels_sends_every_kernel_operator_to_its_wrapper(rng, monkeypatch
             assert entries == ["plain sweep"]  # and the plain residual
             continue
         form, prefix = FORMS[type(op).__name__, op.ndim]
-        assert entries == [f"{prefix}_halfsweep"] * 2 + [f"{prefix}_residual"], op
-        assert cuda_smoothers.launches - before == {(form, "halfsweep"): 2,
+        # the 3D compressed operator's sweep is one launch (B17), the other
+        # forms' two half-sweeps
+        name, count = ("sweep", 1) if form == "compressed" else ("halfsweep", 2)
+        assert entries == [f"{prefix}_{name}"] * count + [f"{prefix}_residual"], op
+        assert cuda_smoothers.launches - before == {(form, name): count,
                                                     (form, "residual"): 1}
 
 
@@ -286,6 +289,14 @@ def test_launch_arguments_per_form(rng, recorded_launches, dtype):
         head = (ptr, 0, 0, 0, *op.shape, *plan)
         passes = [("halfsweep", lambda c: cuda_smoothers.halfsweep(op, x, x, c)),
                   ("residual", lambda: cuda_smoothers.cuda_residual(op, x, x))]
+        if form == "compressed":
+            # the fused sweep (B17): the fused plan's planes per block
+            recorded_launches.clear()
+            assert cuda_smoothers.rbgs_sweep(op, x, x).shape == x.shape
+            zrun = cuda_smoothers.launch_geometry(op.shape, dtype, sweep=True)[0]
+            want = (ptr, 0, 0, 0, *op.shape, zrun, 0)
+            assert recorded_launches == [(f"{prefix}_sweep", want)]
+            assert len(want) == len(SIGNATURES[f"{prefix}_sweep"])
         if op.ndim == 3 and getattr(op, "radius", 1) == 1:
             passes += [("halfsweep_local",
                         lambda c: cuda_smoothers.halfsweep_local(op, x, x, c)),
