@@ -53,7 +53,8 @@ Phases, one line or more each; any failure exits non-zero:
    ``MADConfig.cuda(coarse_operator='galerkin')`` (collapsed levels, the
    stored-operator kernel B12 from level 1 down), then
    ``galerkin_variant='exact'`` (radius-2 levels; the Galerkin product
-   B16 on every coarse level of both; at 256^3 if the 512^3
+   B16 on every coarse level of both, counted under each call's own variant
+   in ``cuda_galerkin_product.launches``; at 256^3 if the 512^3
    setup's peak device memory passes 60 GB), each to 1e-6 in < 100 cycles,
    each with ``use_kernels=False`` (within one cycle, 1e-4 relative L2);
 8. 2D main path: lena from ``tests/goldens/lena_gs_v.npz`` in float64
@@ -122,8 +123,10 @@ with ``torch.equal``.
 
 Phase 3 ends with B16, the Galerkin product: levels 1 and 2 of the 512^3
 collapsed chain (the compressed level-0 operator -> 256^3, that level's 27
-planes -> 128^3) against the eager path on the same planes, within 1e-6 of
-the largest diagonal value, both timed.
+planes -> 128^3) and of the exact chain (-> 256^3 in 117 planes, those ->
+128^3 in 125 planes; the generic form, which ``galerkin512-exact`` runs)
+against the eager path on the same planes, within 1e-6 of the largest
+diagonal value, all four timed.
 The line before the last is ``{"kernels": [...]}``, 23 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
@@ -201,8 +204,10 @@ OPS_HV_VESSELNESS = OPS_VESSELNESS - 3 * MATH_OPS["div"] + 3
 #: 8 z slabs x B9
 GD_LAUNCHES = {"conv_z": 120, "conv_y": 240, "conv_x": 240, "hessian_vesselness": 40,
                "tensor_assembly": 8}
-#: B16's phase-3 cases: levels 1 and 2 of the 512^3 collapsed chain
-GALERKIN_LEVELS = ("512^3 -> 256^3 collapsed", "256^3 -> 128^3 collapsed")
+#: B16's phase-3 cases: levels 1 and 2 of the 512^3 collapsed and exact
+#: chains, each tag with whether its product is collapsed
+GALERKIN_LEVELS = {"512^3 -> 256^3 collapsed": True, "256^3 -> 128^3 collapsed": True,
+                   "512^3 -> 256^3 exact": False, "256^3 -> 128^3 exact": False}
 #: B16's float32 tolerance, of the largest diagonal value
 GALERKIN_TOL = 1e-6
 KERNELS = {
@@ -321,7 +326,7 @@ KERNELS = {
     "galerkin_product": (
         "multigridanisotropicdiffusion_tpu_torch/csrc/galerkin_product.cu",
         "none: XLA",
-        "galerkin_product f32", GALERKIN_LEVELS[0],
+        "galerkin_product f32", next(iter(GALERKIN_LEVELS)),
     ),
 }
 #: the kernels of the 3D compressed solve and of the VED call: each sweep
@@ -344,7 +349,7 @@ EXTRA_CASES = {
     "stencil_residual_local": (),
     "stencil_stored_halfsweep_local": (),
     "stencil_stored_residual_local": (),
-    "galerkin_product": GALERKIN_LEVELS[1:],
+    "galerkin_product": tuple(GALERKIN_LEVELS)[1:],
 }
 #: the shard-local kernel B14 (compressed, and stored through B12)
 LOCAL_KERNELS = ("stencil_halfsweep_local", "stencil_residual_local",
@@ -1185,13 +1190,14 @@ def check_axis_forms(gen, errs, timings, work):
 
 
 def check_galerkin_product(gen, errs, timings, work):
-    """B16 on levels 1 and 2 of the 512^3 collapsed chain (the compressed
-    level-0 operator -> 256^3, then that level's 27 stored planes -> 128^3),
-    against the eager path (``assemble_galerkin_parabolic`` without
-    kernels) on the same planes: max |kernel - eager| <= GALERKIN_TOL times
-    the eager level's largest diagonal value, equal offsets.  Both timed;
-    the bound counts the fine planes read once and the coarse planes
-    written once."""
+    """B16 on levels 1 and 2 of the 512^3 collapsed and exact chains (the
+    compressed level-0 operator -> 256^3, then that level's stored planes,
+    27 or 117, -> 128^3), against the eager path (``assemble_galerkin_parabolic``
+    without kernels) on the same planes: max |kernel - eager| <= GALERKIN_TOL
+    times the eager level's largest diagonal value, equal offsets.  Both
+    timed; the bound counts the fine planes read once and the coarse planes
+    written once.  The eager level is built first, so that its temporaries
+    are gone before the kernel's planes are allocated."""
     import torch
 
     from multigridanisotropicdiffusion_tpu_torch.core.grids import CELL
@@ -1200,39 +1206,46 @@ def check_galerkin_product(gen, errs, timings, work):
 
     log("  Galerkin product (B16)")
     t = spd_tensor_field(SHAPE, gen)
-    fine = compressed.assemble_compressed_dca(t, (1.0,) * 3, DT)
+    level0 = compressed.assemble_compressed_dca(t, (1.0,) * 3, DT)
     del t
     cent = (CELL,) * 3
-    for tag in GALERKIN_LEVELS:
-        got = cuda_galerkin.cuda_galerkin_product(fine, cent, True)
-        want = galerkin.assemble_galerkin_parabolic(fine, cent, collapse=True)
+    fine = level0
+    for tag, collapse in GALERKIN_LEVELS.items():
+        if tag.startswith("512^3"):
+            fine = level0
+            torch.cuda.empty_cache()
+        want = galerkin.assemble_galerkin_parabolic(fine, cent, collapse=collapse)
+        torch.cuda.empty_cache()
+        got = cuda_galerkin.cuda_galerkin_product(fine, cent, collapse)
         if got.offsets != want.offsets or got.coeffs.dtype != want.coeffs.dtype:
             fail(f"galerkin_product {tag}: offsets or dtype differ from the eager path")
         err = max((g.double() - w.double()).abs().max().item()
                   for g, w in zip(got.coeffs, want.coeffs))
         scale = want.diag.abs().max().item()
         ok = err <= GALERKIN_TOL * scale and bool(torch.isfinite(got.coeffs).all())
-        log(f"  galerkin_product f32 {tag}: max_abs_err={err:.3e} max|diag|={scale:.3e} "
-            f"tol={GALERKIN_TOL:g} x max|diag| {'ok' if ok else 'FAILED'}")
+        log(f"  galerkin_product f32 {tag}: {len(got.offsets)} planes, max_abs_err={err:.3e} "
+            f"max|diag|={scale:.3e} tol={GALERKIN_TOL:g} x max|diag| "
+            f"{'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"galerkin_product {tag} disagrees with the eager path")
         key = ("galerkin_product f32", tag)
         errs[key] = err
         del got
         torch.cuda.empty_cache()
-        ms = median_ms(lambda: cuda_galerkin.cuda_galerkin_product(fine, cent, True), 10)
+        ms = median_ms(lambda: cuda_galerkin.cuda_galerkin_product(fine, cent, collapse), 10)
         plain_ms = median_ms(
-            lambda: galerkin.assemble_galerkin_parabolic(fine, cent, collapse=True), 3)
+            lambda: galerkin.assemble_galerkin_parabolic(fine, cent, collapse=collapse), 3)
         timings[key] = (ms, plain_ms)
         fine_planes = galerkin.plane_table(fine)[1]
         nbytes = fine_planes.numel() * 4 + want.coeffs.numel() * 4
         work[key] = (nbytes, 0, tuple(fine_planes.shape[1:]), "float32")
         log(f"    galerkin_product f32 {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms(nbytes, 0)[0]:.3f} ms (bytes)")
-        del fine
+        del fine, fine_planes
         fine = want
+        del want
         torch.cuda.empty_cache()
-    del fine
+    del fine, level0
     torch.cuda.empty_cache()
 
 
@@ -1592,7 +1605,6 @@ def wrapper_counters():
     from multigridanisotropicdiffusion_tpu_torch.ops import (
         cuda_assemble,
         cuda_conv,
-        cuda_galerkin,
         cuda_transfer,
         cuda_vesselness,
     )
@@ -1609,25 +1621,28 @@ def wrapper_counters():
         "conv_y": cuda_conv.conv_y,
         "conv_x": cuda_conv.conv_x,
         "fd_hessian": cuda_vesselness.fd_hessian,
-        "galerkin_product": cuda_galerkin.cuda_galerkin_product,
     }
 
 
 def launch_counts():
     """Every kernel's launches since :func:`reset_counters`, by the kernels
-    line's names."""
-    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
+    line's names; B16's also by variant, as ``galerkin_product.<variant>``."""
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_galerkin, cuda_smoothers
 
     counts = {name: sum(cuda_smoothers.launches[k] for k in keys)
               for name, keys in STENCIL_LAUNCHES.items()}
     counts.update({name: f.launches for name, f in wrapper_counters().items()})
+    b16 = cuda_galerkin.cuda_galerkin_product.launches
+    counts["galerkin_product"] = b16.total()
+    counts.update({f"galerkin_product.{variant}": n for variant, n in b16.items()})
     return counts
 
 
 def reset_counters():
-    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_smoothers
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_galerkin, cuda_smoothers
 
     cuda_smoothers.launches.clear()
+    cuda_galerkin.cuda_galerkin_product.launches.clear()
     for f in wrapper_counters().values():
         f.launches = 0
 
@@ -1721,6 +1736,7 @@ def phase_galerkin(gen):
     variant), then exact."""
     import torch
 
+    from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
     from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("== phase 7: Galerkin main path, mad_diffusion at 512^3 to 1e-6 with "
@@ -1731,8 +1747,16 @@ def phase_galerkin(gen):
     expect = STENCIL_3D + ("stencil_stored_halfsweep", "stencil_stored_residual",
                            "galerkin_product")
     launches, collapsed = solve_pair("galerkin collapsed 512^3", b, tensor, kw, expect)
-    _, exact = solve_pair("galerkin exact 512^3", b, tensor,
-                          dict(kw, galerkin_variant="exact"), expect)
+    exact_launches, exact = solve_pair("galerkin exact 512^3", b, tensor,
+                                       dict(kw, galerkin_variant="exact"), expect)
+    # B16 counts each call's Galerkin levels under its own variant alone
+    n = len(build_level_descriptors(SHAPE)) - 1
+    for variant, other, counts in (("collapsed", "exact", launches),
+                                   ("exact", "collapsed", exact_launches)):
+        if (counts.get(f"galerkin_product.{variant}") != n
+                or counts.get(f"galerkin_product.{other}")):
+            fail(f"galerkin {variant} 512^3: B16 launches by variant {counts}, want "
+                 f"{n} under {variant!r} alone")
     summaries = [collapsed, exact]
     if exact["kernels"]["setup_peak_gib"] > EXACT_PEAK_LIMIT_GIB:
         log(f"  exact setup peak {exact['kernels']['setup_peak_gib']:.1f} GiB passes "

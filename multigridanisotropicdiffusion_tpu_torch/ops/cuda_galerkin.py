@@ -31,12 +31,14 @@ order.
 :func:`galerkin_product_plain` applies a plan with dense per-axis matrices
 (its plain version, for a CPU tensor).  :func:`cuda_galerkin_product` takes
 the plain version for a CPU tensor; for a CUDA tensor it launches the kernel
-(float32 or float64) or raises.  ``cuda_galerkin_product.launches`` counts
-launches.
+(float32 or float64) or raises.  ``cuda_galerkin_product.launches``, a
+``collections.Counter``, counts launches by variant: ``"collapsed"`` or
+``"exact"``.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 import itertools
 from typing import NamedTuple, Sequence, Tuple
@@ -329,8 +331,8 @@ def cuda_galerkin_product(fine_op, centering: Sequence[str],
         plan.O, len(plan.offsets), starts.data_ptr(), weights.data_ptr(),
         plan.interior.ctypes.data, plan.runs.ctypes.data, plan.zchunk, stream_of(planes))
     check_launch(err, name)
-    cuda_galerkin_product.launches += 1
+    cuda_galerkin_product.launches["collapsed" if collapse else "exact"] += 1
     return StencilOperator(out, plan.offsets)
 
 
-cuda_galerkin_product.launches = 0
+cuda_galerkin_product.launches = collections.Counter()

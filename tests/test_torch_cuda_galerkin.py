@@ -311,11 +311,11 @@ def test_solve_through_kernels_matches_plain(device, shape, kw, used, mixed_prec
     b = torch.rand(shape, generator=gen, device=device) * 255
     base = dict(time_step=0.1, tolerance=1e-6, max_cycles=50, **kw)
     cuda_smoothers.launches.clear()
-    cuda_galerkin.cuda_galerkin_product.launches = 0
+    cuda_galerkin.cuda_galerkin_product.launches.clear()
     res = mad_diffusion(b, t, config=MADConfig.cuda(mixed_precision, **base), device=device)
     counts = {k: sum(cuda_smoothers.launches[key] for key in keys)
               for k, keys in STENCIL.items()}
-    counts["b16"] = cuda_galerkin.cuda_galerkin_product.launches
+    counts["b16"] = cuda_galerkin.cuda_galerkin_product.launches.total()
     assert all(counts[k] > 0 for k in used), counts
     ref = mad_diffusion(b, t, config=MADConfig.cuda(mixed_precision, use_kernels=False,
                                                     **base), device=device)
@@ -360,10 +360,11 @@ def test_b16_matches_the_eager_path(device, dtype, collapse, form, shape):
     gen = torch.Generator(device=device).manual_seed(len(shape) + shape[0])
     op = _b16_fine_op(form, shape, gen, device).astype(dtype)
     cent = _centering(shape)
-    before = cuda_galerkin.cuda_galerkin_product.launches
+    before = cuda_galerkin.cuda_galerkin_product.launches.copy()
     got = galerkin.assemble_galerkin_parabolic(op, cent, collapse=collapse, use_kernels=True)
     torch.cuda.synchronize()
-    assert cuda_galerkin.cuda_galerkin_product.launches == before + 1
+    variant = "collapsed" if collapse else "exact"
+    assert cuda_galerkin.cuda_galerkin_product.launches - before == {variant: 1}
     want = galerkin.assemble_galerkin_parabolic(op.astype(torch.float64), cent,
                                                 collapse=collapse)
     assert got.offsets == want.offsets and got.coeffs.dtype == dtype
@@ -385,12 +386,30 @@ def test_b16_launches_once_per_galerkin_level(device):
     b = torch.rand(shape, generator=gen, device=device) * 255
     n = len(build_level_descriptors(shape)) - 1
     for dtype in (torch.float32, torch.float64):
-        before = cuda_galerkin.cuda_galerkin_product.launches
+        before = cuda_galerkin.cuda_galerkin_product.launches.total()
         res = mad_diffusion(b, t, config=MADConfig.cuda(
             time_step=0.1, tolerance=1e-6, coarse_operator="galerkin"), dtype=dtype,
             device=device)
-        assert cuda_galerkin.cuda_galerkin_product.launches - before == n
+        assert cuda_galerkin.cuda_galerkin_product.launches.total() - before == n
         assert float(res.final_residual[0]) <= 1e-6
+
+
+@pytest.mark.parametrize("variant,other", [("exact", "collapsed"), ("collapsed", "exact")])
+def test_b16_counts_its_launches_by_variant(device, variant, other):
+    """A 128^3 hierarchy counts each Galerkin level under its own variant
+    and none under the other."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    shape = (128,) * 3
+    levels = build_level_descriptors(shape)
+    before = cuda_galerkin.cuda_galerkin_product.launches.copy()
+    hier = build_hierarchy(_tensor(shape, gen, device), levels, 0.1, "galerkin", "compressed",
+                           True, variant)
+    torch.cuda.synchronize()
+    got = cuda_galerkin.cuda_galerkin_product.launches - before
+    assert got == {variant: len(levels) - 1} and got[other] == 0
+    planes = [len(op.offsets) for op in hier.operators[1:]]
+    assert planes == ([117] + [125] * (len(levels) - 2) if variant == "exact"
+                      else [27] * (len(levels) - 1))
 
 
 def test_b16_galerkin_levels_wait_for_nothing(device, monkeypatch):
@@ -415,10 +434,10 @@ def test_b16_galerkin_levels_wait_for_nothing(device, monkeypatch):
             torch.cuda.set_sync_debug_mode(0)
 
     monkeypatch.setattr(mad, "assemble_galerkin_parabolic", strict)
-    before = cuda_galerkin.cuda_galerkin_product.launches
+    before = cuda_galerkin.cuda_galerkin_product.launches.total()
     build_hierarchy(t, levels, 0.1, "galerkin", "compressed", True)
     torch.cuda.synchronize()
-    assert cuda_galerkin.cuda_galerkin_product.launches - before == len(levels) - 1
+    assert cuda_galerkin.cuda_galerkin_product.launches.total() - before == len(levels) - 1
 
 
 def test_b16_refuses_2d_and_bfloat16(device):
@@ -434,8 +453,8 @@ def test_b16_refuses_2d_and_bfloat16(device):
             cuda_galerkin.cuda_galerkin_product(op3.astype(dtype), (CELL,) * 3, True)
         assert not cuda_galerkin.kernel_takes(op3.astype(dtype))
     assert not cuda_galerkin.kernel_takes(op2)
-    before = cuda_galerkin.cuda_galerkin_product.launches
+    before = cuda_galerkin.cuda_galerkin_product.launches.total()
     got = galerkin.assemble_galerkin_parabolic(op3.astype(torch.bfloat16), (CELL,) * 3,
                                                collapse=True, use_kernels=True)
     assert got.coeffs.dtype == torch.bfloat16
-    assert cuda_galerkin.cuda_galerkin_product.launches == before
+    assert cuda_galerkin.cuda_galerkin_product.launches.total() == before

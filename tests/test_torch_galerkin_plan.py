@@ -353,7 +353,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_refuses_2d():
     nothing; ``kernel_takes`` leaves CPU, 2D and matrix-free operators to
     the eager paths; a 2D operator is refused."""
     op = _fine_op((8, 8, 8), "compressed")
-    before = cg.cuda_galerkin_product.launches
+    before = cg.cuda_galerkin_product.launches.copy()
     got = cg.cuda_galerkin_product(op, (CELL,) * 3, True)
     want = galerkin.assemble_galerkin_parabolic(op, (CELL,) * 3, collapse=True,
                                                 use_kernels=True)
