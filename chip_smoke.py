@@ -54,7 +54,10 @@ Phases, one line or more each; any failure exits non-zero:
    stored-operator kernel B12 from level 1 down), then
    ``galerkin_variant='exact'`` (radius-2 levels; the Galerkin product
    B16 on every coarse level of both, counted under each call's own variant
-   in ``cuda_galerkin_product.launches``; at 256^3 if the 512^3
+   in ``cuda_galerkin_product.launches`` and, per level, under its form in
+   ``cuda_galerkin_product.forms``: exact19 x1, exact117 x1 and exact125 x4
+   in the exact call, compressed19 and stored27 alone in the collapsed one;
+   at 256^3 if the 512^3
    setup's peak device memory passes 60 GB), each to 1e-6 in < 100 cycles,
    each with ``use_kernels=False`` (within one cycle, 1e-4 relative L2);
 8. 2D main path: lena from ``tests/goldens/lena_gs_v.npz`` in float64
@@ -124,9 +127,12 @@ with ``torch.equal``.
 Phase 3 ends with B16, the Galerkin product: levels 1 and 2 of the 512^3
 collapsed chain (the compressed level-0 operator -> 256^3, that level's 27
 planes -> 128^3) and of the exact chain (-> 256^3 in 117 planes, those ->
-128^3 in 125 planes; the generic form, which ``galerkin512-exact`` runs)
-against the eager path on the same planes, within 1e-6 of the largest
-diagonal value, all four timed.
+128^3 in 125 planes; the compiled-in forms exact19 and exact117, which
+``galerkin512-exact`` runs), and that 256^3 exact level pruned at 1e-3 ->
+128^3 (the generic form, which pruned, odd-sized and vertex-centred exact
+levels take), against the eager path on the same planes, within 1e-6 of
+the largest diagonal value, all five timed, each failing unless it took
+its form.
 The line before the last is ``{"kernels": [...]}``, 23 rows (name, route, source, the
 TPU kernel it replaces, launches in its main-path run, max abs error, kernel,
 plain and library milliseconds, and the bound: the larger of the bytes the
@@ -205,11 +211,23 @@ OPS_HV_VESSELNESS = OPS_VESSELNESS - 3 * MATH_OPS["div"] + 3
 GD_LAUNCHES = {"conv_z": 120, "conv_y": 240, "conv_x": 240, "hessian_vesselness": 40,
                "tensor_assembly": 8}
 #: B16's phase-3 cases: levels 1 and 2 of the 512^3 collapsed and exact
-#: chains, each tag with whether its product is collapsed
-GALERKIN_LEVELS = {"512^3 -> 256^3 collapsed": True, "256^3 -> 128^3 collapsed": True,
-                   "512^3 -> 256^3 exact": False, "256^3 -> 128^3 exact": False}
+#: chains, and the exact level 1 pruned at GALERKIN_PRUNE_TOL -> 128^3, each
+#: tag with whether its product is collapsed and the form it must take
+GALERKIN_LEVELS = {"512^3 -> 256^3 collapsed": (True, "compressed19"),
+                   "256^3 -> 128^3 collapsed": (True, "stored27"),
+                   "512^3 -> 256^3 exact": (False, "exact19"),
+                   "256^3 exact pruned -> 128^3": (False, "generic"),
+                   "256^3 -> 128^3 exact": (False, "exact117")}
+#: the pruning of the generic-form case (``galerkin_prune_tol``), as B12's
+#: "256^3 exact pruned" case
+GALERKIN_PRUNE_TOL = 1e-3
 #: B16's float32 tolerance, of the largest diagonal value
 GALERKIN_TOL = 1e-6
+#: B16's launches by form in one 512^3 Galerkin call, per variant: the exact
+#: chain's three compiled-in forms (the compressed operator -> 117 planes,
+#: 117 -> 125, then 125 -> 125), the collapsed chain's two
+GALERKIN_FORMS_512 = {"exact": {"exact19": 1, "exact117": 1, "exact125": 4},
+                      "collapsed": {"compressed19": 1, "stored27": 5}}
 KERNELS = {
     # name: (source, replaced Pallas kernel, phase-3 case reported[, its
     # tag when not the 512^3 level])
@@ -1192,9 +1210,11 @@ def check_axis_forms(gen, errs, timings, work):
 def check_galerkin_product(gen, errs, timings, work):
     """B16 on levels 1 and 2 of the 512^3 collapsed and exact chains (the
     compressed level-0 operator -> 256^3, then that level's stored planes,
-    27 or 117, -> 128^3), against the eager path (``assemble_galerkin_parabolic``
-    without kernels) on the same planes: max |kernel - eager| <= GALERKIN_TOL
-    times the eager level's largest diagonal value, equal offsets.  Both
+    27 or 117, -> 128^3), and on the exact level 1 pruned at
+    GALERKIN_PRUNE_TOL -> 128^3 (the generic form), against the eager path
+    (``assemble_galerkin_parabolic`` without kernels) on the same planes:
+    max |kernel - eager| <= GALERKIN_TOL times the eager level's largest
+    diagonal value, equal offsets, and the form GALERKIN_LEVELS names.  All
     timed; the bound counts the fine planes read once and the coarse planes
     written once.  The eager level is built first, so that its temporaries
     are gone before the kernel's planes are allocated."""
@@ -1209,21 +1229,32 @@ def check_galerkin_product(gen, errs, timings, work):
     level0 = compressed.assemble_compressed_dca(t, (1.0,) * 3, DT)
     del t
     cent = (CELL,) * 3
-    fine = level0
-    for tag, collapse in GALERKIN_LEVELS.items():
+    coarse = None
+    for tag, (collapse, want_form) in GALERKIN_LEVELS.items():
+        # each level's fine planes: the 512^3 operator, or the level before
+        # (pruned for the generic form's case, which keeps that level)
         if tag.startswith("512^3"):
             fine = level0
-            torch.cuda.empty_cache()
+        elif "pruned" in tag:
+            fine = galerkin.prune_stored_operator(coarse, GALERKIN_PRUNE_TOL)
+        else:
+            fine = coarse
+        torch.cuda.empty_cache()
         want = galerkin.assemble_galerkin_parabolic(fine, cent, collapse=collapse)
         torch.cuda.empty_cache()
+        before = cuda_galerkin.cuda_galerkin_product.forms.copy()
         got = cuda_galerkin.cuda_galerkin_product(fine, cent, collapse)
+        (form,) = cuda_galerkin.cuda_galerkin_product.forms - before
         if got.offsets != want.offsets or got.coeffs.dtype != want.coeffs.dtype:
             fail(f"galerkin_product {tag}: offsets or dtype differ from the eager path")
+        if form != want_form:
+            fail(f"galerkin_product {tag}: took the form {form}, want {want_form}")
         err = max((g.double() - w.double()).abs().max().item()
                   for g, w in zip(got.coeffs, want.coeffs))
         scale = want.diag.abs().max().item()
         ok = err <= GALERKIN_TOL * scale and bool(torch.isfinite(got.coeffs).all())
-        log(f"  galerkin_product f32 {tag}: {len(got.offsets)} planes, max_abs_err={err:.3e} "
+        log(f"  galerkin_product f32 {tag} ({form}): {len(got.offsets)} planes, "
+            f"max_abs_err={err:.3e} "
             f"max|diag|={scale:.3e} tol={GALERKIN_TOL:g} x max|diag| "
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
@@ -1242,10 +1273,11 @@ def check_galerkin_product(gen, errs, timings, work):
         log(f"    galerkin_product f32 {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms(nbytes, 0)[0]:.3f} ms (bytes)")
         del fine, fine_planes
-        fine = want
+        if "pruned" not in tag:
+            coarse = want
         del want
         torch.cuda.empty_cache()
-    del fine, level0
+    del coarse, level0
     torch.cuda.empty_cache()
 
 
@@ -1626,7 +1658,8 @@ def wrapper_counters():
 
 def launch_counts():
     """Every kernel's launches since :func:`reset_counters`, by the kernels
-    line's names; B16's also by variant, as ``galerkin_product.<variant>``."""
+    line's names; B16's also by variant, as ``galerkin_product.<variant>``,
+    and by form (``ops.cuda_galerkin.FORMS``), as ``galerkin_product.<form>``."""
     from multigridanisotropicdiffusion_tpu_torch.ops import cuda_galerkin, cuda_smoothers
 
     counts = {name: sum(cuda_smoothers.launches[k] for k in keys)
@@ -1635,6 +1668,8 @@ def launch_counts():
     b16 = cuda_galerkin.cuda_galerkin_product.launches
     counts["galerkin_product"] = b16.total()
     counts.update({f"galerkin_product.{variant}": n for variant, n in b16.items()})
+    counts.update({f"galerkin_product.{form}": n
+                   for form, n in cuda_galerkin.cuda_galerkin_product.forms.items()})
     return counts
 
 
@@ -1643,6 +1678,7 @@ def reset_counters():
 
     cuda_smoothers.launches.clear()
     cuda_galerkin.cuda_galerkin_product.launches.clear()
+    cuda_galerkin.cuda_galerkin_product.forms.clear()
     for f in wrapper_counters().values():
         f.launches = 0
 
@@ -1737,6 +1773,7 @@ def phase_galerkin(gen):
     import torch
 
     from multigridanisotropicdiffusion_tpu_torch.core.grids import build_level_descriptors
+    from multigridanisotropicdiffusion_tpu_torch.ops import cuda_galerkin
     from multigridanisotropicdiffusion_tpu_torch.utils.phantom import spd_tensor_field
 
     log("== phase 7: Galerkin main path, mad_diffusion at 512^3 to 1e-6 with "
@@ -1757,6 +1794,15 @@ def phase_galerkin(gen):
                 or counts.get(f"galerkin_product.{other}")):
             fail(f"galerkin {variant} 512^3: B16 launches by variant {counts}, want "
                  f"{n} under {variant!r} alone")
+    # and each level under its form: the exact chain's compiled-in forms, the
+    # collapsed chain's untouched
+    for variant, counts, want in (("collapsed", launches, GALERKIN_FORMS_512["collapsed"]),
+                                  ("exact", exact_launches, GALERKIN_FORMS_512["exact"])):
+        got = {form: counts.get(f"galerkin_product.{form}", 0) for form in cuda_galerkin.FORMS}
+        got = {form: k for form, k in got.items() if k}
+        log(f"  galerkin {variant} 512^3: B16 launches by form {got}")
+        if got != want:
+            fail(f"galerkin {variant} 512^3: B16 launches by form {got}, want {want}")
     summaries = [collapsed, exact]
     if exact["kernels"]["setup_peak_gib"] > EXACT_PEAK_LIMIT_GIB:
         log(f"  exact setup peak {exact['kernels']['setup_peak_gib']:.1f} GiB passes "

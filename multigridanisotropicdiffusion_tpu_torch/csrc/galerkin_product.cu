@@ -40,8 +40,8 @@
 // coarse y's 4 fine rows into (o_y, o_x); z stage: adds them, times the z
 // table's weight, to the coarse planes the fine plane feeds (two at most,
 // held in registers) and writes a coarse plane when its window ends.
-// Blocks along grid z split the march into chunks and, for the exact
-// variant, its five output z components into passes (25 outputs in
+// Blocks along grid z split the march into chunks and, for the generic
+// form on five output z components, those into passes (25 outputs in
 // registers each).
 //
 // The x and y tables' interior row is a kernel parameter; a tile that holds
@@ -55,7 +55,31 @@
 // the signs folded into the weights, a product per non-zero weight (22 of
 // the 36 a 4-tap row holds); a border column's or row's weights are a
 // small loop.  Other operators take the same march with the tables read at
-// run time (the exact variant, vertex-centred axes).
+// run time (the generic form: vertex-centred axes, pruned levels, radius-2
+// operators that are not the exact chain's).
+//
+// The exact chain's three products (exact19: the compressed operator ->
+// the 5^3 box less its corners, 117 planes; exact117: those -> 125;
+// exact125: 125 -> 125) on cell-centred axes take their own march
+// (galerkin_product_kernel_exact, below): its 125 sums of a coarse point
+// do not fit one thread's registers, so a block of 20 warps splits them
+// (a warp per coarse y, o_y group and o_x), the x stage runs once per fine
+// row and (a_z, a_y) into shared memory for all of them, and the fine
+// planes are read once a level, where the generic form read them once per
+// output z component.  The radius-2 interior row is compiled in
+// (exact_weight), as are the three fine tables and the output map: a
+// product per non-zero weight (24 of 60 at A = 3, 40 of 100 at A = 5).
+// Its bound is the same bytes (level 1 of the 512^3 exact chain: 10
+// planes of 512^3 in, 117 of 256^3 out, 13.2 GB, 3.95 ms); its
+// arithmetic, about 2k (level 1) and 7k (level 2) multiply-adds a coarse
+// point, stays under them.  Measured (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md): level 1 in 13.1 ms and level 2 in 8.4 ms, 30% and 32% of their
+// bytes' pace (the generic form: 125.9 and 110.7 ms), the six levels in
+// 20.9 ms.  What sets the pace is each step's latency, two barriers apart:
+// at level 1 a block's ~129 fine-plane steps take ~3.2 us each, the x stage
+// and the y and z stages ~30% each, the 117 planes' stores ~20%.  Holding
+// 25 sums a thread (10 warps) took 168-255 registers and spilled: 20-27 ms
+// at level 1; 15 sums a thread (20 warps) spill nothing in float32.
 //
 // What it measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): level 1 of the
 // 512^3 collapsed chain in 6.2 ms (a third of its bound's pace), the six
@@ -86,10 +110,15 @@ constexpr int kMaxSlots = 9;
 static_assert(kRows % kWarps == 0, "x stage rows split evenly over the warps");
 static_assert(kThreads % kRows == 0, "a row's copies split evenly over its threads");
 
-// The fine operator forms: offset tables read at run time, or compiled in.
+// The forms (ops.cuda_galerkin.FORMS): offset tables read at run time, or
+// compiled in.  The host's plan names the form; the entry point checks the
+// tables against it.
 constexpr int kGeneric = 0;
 constexpr int kCompressed19 = 1;  // ops.galerkin.plane_table of the compressed operator
 constexpr int kStored27 = 2;      // 27 planes in stencil_offsets(3, 1, False) order
+constexpr int kExact19 = 3;       // the compressed operator -> the 5^3 box less its corners
+constexpr int kExact117 = 4;      // 117 stored planes (that box, in order) -> 125
+constexpr int kExact125 = 5;      // 125 stored planes (stencil_offsets(3, 2, False)) -> 125
 
 // Form f's code of fine offset (az, ay, ax) - 1: plane * 4 + bits (2:
 // negate, 1: the centre's 1 +), -1 none.  The compressed operator's planes:
@@ -606,6 +635,513 @@ __global__ void __launch_bounds__(kThreads, F != kGeneric && sizeof(T) == 4 ? 2 
   wait_copies();
 }
 
+// The exact forms (exact19, exact117, exact125): one march a level, every
+// output component of a coarse point in it.  A block of 20 warps owns 32
+// coarse x (a lane each) by 2 coarse y and marches over a chunk of coarse z
+// planes; warp w holds coarse y w / 10, o_y group w / 5 % 2 (o_y 0, 2, 4 or
+// 1, 3) and output x component o_x = w % 5: its group's 5 o_z x 3 (or 2)
+// o_y sums of each of the two coarse planes a fine plane feeds, in
+// registers.  Every axis is cell-centred and every row of an axis table is
+// read in its window 2 J - 1 .. 2 J + 2 (the host re-indexes the border
+// rows to it: ops.cuda_galerkin.window_table), so the march is regular:
+// fine plane iz feeds coarse planes iz / 2 (odd iz: taps 2 and 0) or
+// iz / 2 - 1 and iz / 2 (even: taps 3 and 1), and the staged tile is the
+// fine rows 2 y0 - 1 .. 2 y0 + 4 by the columns from 2 x0 - 4 (zero past the
+// grid).  A step stages the fine planes of one a_z (exact19: the ten
+// compressed planes, all three a_z), is contracted along x once per fine row
+// and (a_z, a_y) into (o_x) sums in shared memory, then each warp contracts
+// its coarse y's four rows into its o_y and adds them, times the z weight,
+// to its two coarse planes.
+constexpr int kETy = 2;                // coarse y per block
+constexpr int kEO = 5;                 // output components per axis
+constexpr int kEWarps = kETy * kEO * 2;  // a warp per (coarse y, o_y group, o_x)
+constexpr int kEThreads = kTx * kEWarps;
+constexpr int kERows = 2 * kETy + 2;   // fine rows 2 y0 - 1 .. 2 y0 + 2 kETy
+constexpr int kEOy = 3;                // a warp's o_y: 0, 2, 4 (group 0) or 1, 3 (group 1)
+constexpr int kEOut = kEO * kEOy;      // a thread's sums per coarse plane: (o_z, its o_y)
+
+// Group g's o_y: each (tap, a) of an interior row weighs two neighbouring
+// outputs, one of each group, so the groups share the y stage's products
+// evenly.
+__host__ __device__ constexpr int group_n(int g) { return g == 0 ? 3 : 2; }
+__host__ __device__ constexpr int group_oy(int g, int k) { return 2 * k + g; }
+
+// The exact chain's interior row on a cell-centred axis: weight of tap t
+// (fine 2J - 1 + t), fine offset component a - ra and output o - 2, the
+// restriction's 1 3 3 1 / 8 times the prolongation's 3/4 and 1/4 of fine
+// row f = 2J - 1 + t + a - ra onto coarse J + o - 2 (cell_weight unclipped).
+__host__ __device__ constexpr float exact_weight(int ra, int t, int a, int o) {
+  const float r[4] = {0.125f, 0.375f, 0.375f, 0.125f};
+  const int f = t - 1 + a - ra;                   // relative to 2J
+  const int m = f >= 0 ? f / 2 : -((1 - f) / 2);  // floor(f / 2)
+  const int k1 = (f - 2 * m == 0) ? m - 1 : m + 1;  // the 1/4 entry
+  float w = 0.0f;
+  if (m == o - 2) w += 0.75f;
+  if (k1 == o - 2) w += 0.25f;
+  return r[t] * w;
+}
+
+__host__ __device__ constexpr int exact_a(int f) { return f == kExact19 ? 3 : 5; }
+
+// Offset (z, y, x) of the 5^3 box, components 0 .. 4, is one of its corners.
+__host__ __device__ constexpr bool box_corner(int z, int y, int x) {
+  return (z == 0 || z == 4) && (y == 0 || y == 4) && (x == 0 || x == 4);
+}
+
+// Its index among the box's offsets in order (stencil_offsets(3, 2, False)),
+// the corners left out under `skip` (-1 for a corner).
+__host__ __device__ constexpr int box_index(bool skip, int z, int y, int x) {
+  const int i = (z * 5 + y) * 5 + x;
+  if (!skip) return i;
+  if (box_corner(z, y, x)) return -1;
+  int before = 0;
+  for (int c = 0; c < 8; ++c) before += ((c & 4 ? 100 : 0) + (c & 2 ? 20 : 0) + (c & 1 ? 4 : 0)) < i;
+  return i - before;
+}
+
+// Form f's code of fine offset (az, ay, ax), components 0 .. A - 1, as the
+// host's fine table holds it (plane * 4 + bits), and its output plane of
+// (oz, oy, ox).
+__host__ __device__ constexpr int exact_code(int f, int az, int ay, int ax) {
+  if (f == kExact19) return form_code(kCompressed19, az, ay, ax);
+  const int p = box_index(f == kExact117, az, ay, ax);
+  return p < 0 ? -1 : p * 4 + 2 + (az == 2 && ay == 2 && ax == 2);
+}
+
+__host__ __device__ constexpr int exact_out(int f, int oz, int oy, int ox) {
+  return box_index(f == kExact19, oz, oy, ox);
+}
+
+// The planes step a_z stages, consecutive from exact_first: exact19 all ten
+// (one step a fine plane); the stored forms a_z's own.
+__host__ __device__ constexpr int exact_first(int f, int az) {
+  return f == kExact19 ? 0 : f == kExact125 ? az * 25 : az * 25 - (az > 0 ? 4 : 0);
+}
+
+__host__ __device__ constexpr int exact_nplanes(int f, int az) {
+  return f == kExact19 ? 10 : (f == kExact117 && (az == 0 || az == 4)) ? 21 : 25;
+}
+
+// The launch's parameters: the y, x and z interior runs (coarse indices lo,
+// hi: their rows are the compiled-in interior row), the output map and, for
+// exact19, the fine codes (exact_code, (a_z, a_y, a_x)).
+struct ExactParams {
+  int runs[6];
+  short out[kEO * kEO * kEO];
+  signed char code[27];
+};
+
+// The two stages, the x stage's sums ([row][group][o_x][lane], a group an
+// (a_z, a_y) of the step) and a border tile's x rows ([entry][lane]).
+template <typename T, int F>
+struct ESmem {
+  using C = typename mad::Compute<T>::type;
+  static constexpr int kSlots = F == kExact19 ? 10 : 25;
+  static constexpr int kGroups = F == kExact19 ? 9 : 5;
+  static constexpr int kSlot = kERows * kCols;
+  static constexpr int kStage = kSlots * kSlot;
+  static constexpr int kU = kERows * kGroups * kEO * kTx;
+  static constexpr int kXw = kTaps * exact_a(F) * kEO * kTx;
+  static constexpr int kBytes = 2 * kStage * static_cast<int>(sizeof(T)) +
+                                kU * static_cast<int>(sizeof(C)) + kXw * 4;
+  static_assert(kBytes <= 232448, "shared memory");
+};
+
+// A lane's taps of one staged row: fine 2 J - 1 .. 2 J + 2 at columns kb + 1
+// .. kb + 4 (kb even; the middle two as a pair).
+template <typename T>
+__device__ __forceinline__ void window_taps(const T* row, int kb,
+                                            typename mad::Compute<T>::type (&tap)[kTaps]) {
+  using P2 = typename Pair<T>::type;
+  const P2 mid = *reinterpret_cast<const P2*>(row + kb + 2);
+  tap[0] = row[kb + 1];
+  tap[1] = mid.x;
+  tap[2] = mid.y;
+  tap[3] = row[kb + 4];
+}
+
+// The x weight of entry (t, a, o): the interior row's, compiled in, or (B, a
+// tile that holds a border column) the lane's own row, staged in shared
+// memory (xw: the lane's column of [entry][lane]).
+template <bool B, int A>
+__device__ __forceinline__ float x_weight(const float* xw, int t, int a, int o) {
+  if constexpr (B) return xw[((t * A + a) * kEO + o) * kTx];
+  return exact_weight(A / 2, t, a, o);
+}
+
+// The x stage of staged row r and group (a_z, a_y) of the stored forms:
+// u[o_x] = sum over a_x, t of w(t, a_x, o_x) * s, s = -c off the centre and
+// 1 - c on it, a product per non-zero weight of the interior row.
+template <typename T, int F, bool B>
+__device__ __forceinline__ void x_item5(const T* stage, int r, int az, int ay, int kb,
+                                        const float* xw, typename mad::Compute<T>::type* u,
+                                        int lane) {
+  using C = typename mad::Compute<T>::type;
+  constexpr int kSlot = ESmem<T, F>::kSlot;
+  // exact117's first and last a_z lack the four corners: their rows a_y = 0
+  // and 4 hold a_x = 1 .. 3 alone
+  const bool zc = F == kExact117 && (az == 0 || az == 4);
+  const bool rc = zc && (ay == 0 || ay == 4);
+  const int s0 = ay * 5 - (zc ? (ay == 0 ? 1 : ay == 4 ? 3 : 2) : 0);
+  const bool centre = az == 2 && ay == 2;
+  const T* row = stage + r * kCols;
+  C acc[kEO];
+#pragma unroll
+  for (int o = 0; o < kEO; ++o) acc[o] = C(0);
+#pragma unroll
+  for (int ax = 0; ax < 5; ++ax) {
+    if ((ax == 0 || ax == 4) && rc) continue;
+    C tap[kTaps];
+    window_taps<T>(row + (s0 + ax) * kSlot, kb, tap);
+    if (ax == 2 && centre) {
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) tap[t] -= C(1);
+    }
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+#pragma unroll
+      for (int o = 0; o < kEO; ++o) {
+        if (exact_weight(2, t, ax, o) != 0.0f) acc[o] -= C(x_weight<B, 5>(xw, t, ax, o)) * tap[t];
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kEO; ++o) u[((r * 5 + ay) * kEO + o) * kTx + lane] = acc[o];
+}
+
+// The same for group g = (a_z, a_y) of exact19, the compressed planes with
+// their signs: each a_x's code (code: the group's three) read at run time,
+// the weights compiled in.
+template <typename T, bool B>
+__device__ __forceinline__ void x_item3(const T* stage, int r, int g, int kb, const float* xw,
+                                        const signed char* code,
+                                        typename mad::Compute<T>::type* u, int lane) {
+  using C = typename mad::Compute<T>::type;
+  constexpr int kSlot = ESmem<T, kExact19>::kSlot;
+  const T* row = stage + r * kCols;
+  C acc[kEO];
+#pragma unroll
+  for (int o = 0; o < kEO; ++o) acc[o] = C(0);
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const int c = code[ax];
+    if (c < 0) continue;
+    C tap[kTaps];
+    window_taps<T>(row + (c >> 2) * kSlot, kb, tap);
+    // s = -c off the centre, 1 - c on it; +c where the term's sign is negative
+    const C one = (c & 1) ? C(1) : C(0);
+    const C sign = (c & 2) ? C(-1) : C(1);
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) tap[t] = (tap[t] - one) * sign;
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+#pragma unroll
+      for (int o = 0; o < kEO; ++o) {
+        if (exact_weight(1, t, ax, o) != 0.0f) acc[o] += C(x_weight<B, 3>(xw, t, ax, o)) * tap[t];
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kEO; ++o) u[((r * 9 + g) * kEO + o) * kTx + lane] = acc[o];
+}
+
+// A warp's y stage for one a_z: v[k] = sum over a_y, t of w(t, a_y, o_y) *
+// the x stage's sum of its coarse y's row t, group a_y, its o_x (ug: row 0,
+// the a_z's first group), o_y its group GR's k-th; w the interior row or
+// (B) the warp's own.
+template <typename T, int A, int G, int GR, bool B>
+__device__ __forceinline__ void y_stage(const typename mad::Compute<T>::type* ug,
+                                        const float* __restrict__ dy,
+                                        typename mad::Compute<T>::type (&v)[kEOy]) {
+  using C = typename mad::Compute<T>::type;
+#pragma unroll
+  for (int k = 0; k < kEOy; ++k) v[k] = C(0);
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const C x = ug[(t * G + a) * kEO * kTx];
+#pragma unroll
+      for (int k = 0; k < group_n(GR); ++k) {
+        const int o = group_oy(GR, k);
+        const float w = exact_weight(A / 2, t, a, o);
+        if (w == 0.0f) continue;
+        v[k] += (B ? C(__ldg(dy + (t * A + a) * kEO + o)) : C(w)) * x;
+      }
+    }
+  }
+}
+
+// The z stage of a_z AZ on interior coarse planes, compiled in: fine plane
+// iz (P: odd) is tap 2 (odd; else 3) of the first plane it feeds, tap 0
+// (else 1) of the second.
+template <int A, int AZ, int P, int GR, typename C>
+__device__ __forceinline__ void z_form(const C (&v)[kEOy], C (&acc0)[kEOut],
+                                       C (&acc1)[kEOut]) {
+  constexpr int t0 = P ? 2 : 3;
+#pragma unroll
+  for (int oz = 0; oz < kEO; ++oz) {
+    const float w0 = exact_weight(A / 2, t0, AZ, oz);
+    const float w1 = exact_weight(A / 2, t0 - 2, AZ, oz);
+#pragma unroll
+    for (int k = 0; k < group_n(GR); ++k) {
+      if (w0 != 0.0f) acc0[oz * kEOy + k] += C(w0) * v[k];
+      if (w1 != 0.0f) acc1[oz * kEOy + k] += C(w1) * v[k];
+    }
+  }
+}
+
+// The same where either plane is a border plane (or past the grid): the
+// planes' rows read from memory.
+template <int A, int GR, typename C>
+__device__ __forceinline__ void z_read(const float* __restrict__ wz, int cz, int cur, int az,
+                                       bool odd, const C (&v)[kEOy], C (&acc0)[kEOut],
+                                       C (&acc1)[kEOut]) {
+  constexpr int kW = kTaps * A * kEO;
+  const int t0 = odd ? 2 : 3;
+  if (cur >= 0) {
+    const float* h = wz + static_cast<int64_t>(cur) * kW + (t0 * A + az) * kEO;
+#pragma unroll
+    for (int oz = 0; oz < kEO; ++oz) {
+      const C hz = C(__ldg(h + oz));
+#pragma unroll
+      for (int k = 0; k < group_n(GR); ++k) acc0[oz * kEOy + k] += hz * v[k];
+    }
+  }
+  if (cur + 1 < cz) {
+    const float* h = wz + static_cast<int64_t>(cur + 1) * kW + ((t0 - 2) * A + az) * kEO;
+#pragma unroll
+    for (int oz = 0; oz < kEO; ++oz) {
+      const C hz = C(__ldg(h + oz));
+#pragma unroll
+      for (int k = 0; k < group_n(GR); ++k) acc1[oz * kEOy + k] += hz * v[k];
+    }
+  }
+}
+
+// F: kExact19, kExact117 or kExact125; V: values per staged copy.
+template <typename T, int F, int V>
+__global__ void __launch_bounds__(kEThreads, 1)
+    galerkin_product_kernel_exact(const T* __restrict__ planes, T* __restrict__ out, int nz,
+                                  int ny, int nx, int cz, int cy, int cx,
+                                  const float* __restrict__ weights, int zchunk,
+                                  const __grid_constant__ ExactParams prm) {
+  using C = typename mad::Compute<T>::type;
+  using S = ESmem<T, F>;
+  constexpr int A = exact_a(F);
+  constexpr int kW = kTaps * A * kEO;          // one coarse index's table
+  constexpr int kQ = kCols / V;                // copies per staged row
+  constexpr int kPer = kERows * kQ;            // copies per staged plane
+  constexpr int kCopyGroups = kEThreads / kPer > 1 ? kEThreads / kPer : 1;
+  constexpr int kSteps = F == kExact19 ? 1 : A;  // steps per fine plane
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  C* u = reinterpret_cast<C*>(smem + sizeof(T) * 2 * S::kStage);
+  float* xw = reinterpret_cast<float*>(smem + sizeof(T) * 2 * S::kStage + sizeof(C) * S::kU);
+
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * kTx + lane;
+  const int yl = warp / (2 * kEO), grp = warp / kEO % 2, ox = warp % kEO;
+  const int z0 = blockIdx.z * zchunk;
+  const int z1 = min(z0 + zchunk, cz);
+  const int x0 = blockIdx.x * kTx, y0 = blockIdx.y * kETy;
+  const int jx = x0 + lane, jy = y0 + yl;
+  const int jxc = min(jx, cx - 1), jyc = min(jy, cy - 1);
+  const int xbase = 2 * x0 - kAlign;  // the staged columns: fine 2 x0 - 4 on
+  const int ybase = 2 * y0 - 1;       // the staged rows: fine 2 y0 - 1 on
+  const int kb = 2 * lane + 2;        // this lane's taps: columns kb + 1 .. kb + 4
+  const float* wz = weights;
+  const float* wy = wz + static_cast<int64_t>(cz) * kW;
+  const float* wx = wy + static_cast<int64_t>(cy) * kW;
+  // a tile that holds a border column, or a warp a border row, reads its
+  // rows from memory, else the interior row
+  const bool xborder = x0 < prm.runs[2] || x0 + kTx > prm.runs[3];
+  const bool yborder = jyc < prm.runs[0] || jyc >= prm.runs[1];
+  const float* dy = wy + static_cast<int64_t>(jyc) * kW;
+  if (xborder) {
+    // the tile's x rows, [entry][lane], read before the first step's barrier
+    for (int e = warp; e < kW; e += kEWarps) {
+      xw[e * kTx + lane] = __ldg(wx + static_cast<int64_t>(e) * cx + jxc);
+    }
+  }
+  const float* xwl = xw + lane;
+  const int64_t plane_n = static_cast<int64_t>(nz) * ny * nx;
+
+  // stage the planes of step az of fine plane iz into stage b: thread t
+  // copies (row, copy) t % kPer of every kCopyGroups-th plane from t / kPer
+  auto fetch = [&](int iz, int az, int b) {
+    T* dst0 = ring + b * S::kStage;
+    const T* src0 = planes + exact_first(F, az) * plane_n + static_cast<int64_t>(iz) * ny * nx;
+    const int n = exact_nplanes(F, az);
+    for (int i = tid; i < kCopyGroups * kPer; i += kEThreads) {
+      const int g = i / kPer, rq = i - g * kPer;
+      const int row = rq / kQ, q = rq - row * kQ;
+      const int fy = ybase + row, fx = xbase + q * V;
+      const bool ok = fy >= 0 && fy < ny && fx >= 0 && fx + V <= nx;
+      T* dst = dst0 + g * S::kSlot + row * kCols + q * V;
+      const T* src = src0 + g * plane_n + (ok ? static_cast<int64_t>(fy) * nx + fx : 0);
+      for (int s = g; s < n; s += kCopyGroups) {
+        copy_async<V * static_cast<int>(sizeof(T))>(dst, ok ? src : planes, ok);
+        dst += kCopyGroups * S::kSlot;
+        src += kCopyGroups * plane_n;
+      }
+    }
+  };
+
+  // the x stage of one step: every (fine row, group) once, the warps in turn
+  auto x_stage = [&](const T* stage, int az, auto border) {
+    constexpr bool B = decltype(border)::value;
+    if constexpr (F == kExact19) {
+#pragma unroll 1
+      for (int i = warp; i < kERows * 9; i += kEWarps) {
+        const int g = i / kERows;
+        x_item3<T, B>(stage, i - g * kERows, g, kb, xwl, prm.code + 3 * g, u, lane);
+      }
+    } else {
+#pragma unroll 1
+      for (int i = warp; i < kERows * 5; i += kEWarps) {
+        const int r = i / 5;
+        x_item5<T, F, B>(stage, r, az, i - 5 * r, kb, xwl, u, lane);
+      }
+    }
+  };
+
+  C acc0[kEOut], acc1[kEOut];
+#pragma unroll
+  for (int i = 0; i < kEOut; ++i) acc0[i] = acc1[i] = C(0);
+  const bool live = jx < cx && jy < cy;
+  const int64_t cn = static_cast<int64_t>(cz) * cy * cx;
+
+  // coarse plane jz's window has ended: write this thread's (o_y, o_x) of it
+  auto write = [&](int jz, auto grc) {
+    constexpr int GR = decltype(grc)::value;
+    if (!live) return;
+    const int64_t at = (static_cast<int64_t>(jz) * cy + jy) * cx + jx;
+#pragma unroll
+    for (int oz = 0; oz < kEO; ++oz) {
+#pragma unroll
+      for (int k = 0; k < group_n(GR); ++k) {
+        const int oy = group_oy(GR, k);
+        const int p = prm.out[(oz * kEO + oy) * kEO + ox];
+        if (p < 0) continue;
+        C val = -acc0[oz * kEOy + k];
+        if (oz == 2 && oy == 2 && ox == 2) val = C(1) + val;
+        mad::store(out + p * cn + at, val);
+      }
+    }
+  };
+
+  // a warp's y stage of the step's groups g0 ..: its coarse y's rows, its o_x
+  auto ystage = [&](int g0, C (&v)[kEOy], auto grc) {
+    constexpr int G = S::kGroups, GR = decltype(grc)::value;
+    const C* ug = u + ((2 * yl * G + g0) * kEO + ox) * kTx + lane;
+    if (yborder) {
+      y_stage<T, A, G, GR, true>(ug, dy, v);
+    } else {
+      y_stage<T, A, G, GR, false>(ug, dy, v);
+    }
+  };
+  // the z stage of a_z AZ: on interior planes compiled in, else read
+  auto zstage = [&](auto azc, const C (&v)[kEOy], bool odd, bool zin, int cur, auto grc) {
+    constexpr int AZ = decltype(azc)::value, GR = decltype(grc)::value;
+    if (!zin) {
+      z_read<A, GR>(wz, cz, cur, AZ, odd, v, acc0, acc1);
+    } else if (odd) {
+      z_form<A, AZ, 1, GR>(v, acc0, acc1);
+    } else {
+      z_form<A, AZ, 0, GR>(v, acc0, acc1);
+    }
+  };
+  // the y and z stages of a step, for o_y group GR
+  auto yz = [&](int az, bool odd, bool zin, int cur, auto grc) {
+    C v[kEOy];
+    using I0 = std::integral_constant<int, 0>;
+    using I1 = std::integral_constant<int, 1>;
+    using I2 = std::integral_constant<int, 2>;
+    if constexpr (F == kExact19) {
+      // the three a_z of the fine plane
+#pragma unroll 1
+      for (int z = 0; z < 3; ++z) {
+        ystage(3 * z, v, grc);
+        if (z == 0) {
+          zstage(I0{}, v, odd, zin, cur, grc);
+        } else if (z == 1) {
+          zstage(I1{}, v, odd, zin, cur, grc);
+        } else {
+          zstage(I2{}, v, odd, zin, cur, grc);
+        }
+      }
+    } else {
+      ystage(0, v, grc);
+      switch (az) {
+        case 0: zstage(I0{}, v, odd, zin, cur, grc); break;
+        case 1: zstage(I1{}, v, odd, zin, cur, grc); break;
+        case 2: zstage(I2{}, v, odd, zin, cur, grc); break;
+        case 3: zstage(std::integral_constant<int, 3>{}, v, odd, zin, cur, grc); break;
+        default: zstage(std::integral_constant<int, 4>{}, v, odd, zin, cur, grc); break;
+      }
+    }
+  };
+
+  const int izs = max(2 * z0 - 1, 0), ize = min(2 * z1, nz - 1);
+  int buf = 0;
+  fetch(izs, 0, 0);
+  commit_copies();
+  for (int iz = izs; iz <= ize; ++iz) {
+    const bool odd = iz & 1;
+    const int cur = odd ? iz >> 1 : (iz >> 1) - 1;  // iz feeds coarse planes cur, cur + 1
+    const bool zin = cur >= prm.runs[4] && cur + 1 < prm.runs[5];
+#pragma unroll 1
+    for (int az = 0; az < kSteps; ++az, buf ^= 1) {
+      wait_copies();    // this step's copies have landed
+      __syncthreads();  // everyone's; the other stage and u are free
+      if (az + 1 < kSteps) {
+        fetch(iz, az + 1, buf ^ 1);
+      } else if (iz < ize) {
+        fetch(iz + 1, 0, buf ^ 1);
+      }
+      commit_copies();
+      const T* stage = ring + buf * S::kStage;
+      if (xborder) {
+        x_stage(stage, az, std::true_type{});
+      } else {
+        x_stage(stage, az, std::false_type{});
+      }
+      __syncthreads();
+      if (grp == 0) {
+        yz(az, odd, zin, cur, std::integral_constant<int, 0>{});
+      } else {
+        yz(az, odd, zin, cur, std::integral_constant<int, 1>{});
+      }
+    }
+    if (!odd) {
+      // coarse plane cur's window ends at iz
+      if (cur >= z0) {
+        if (grp == 0) {
+          write(cur, std::integral_constant<int, 0>{});
+        } else {
+          write(cur, std::integral_constant<int, 1>{});
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kEOut; ++i) {
+        acc0[i] = acc1[i];
+        acc1[i] = C(0);
+      }
+    }
+  }
+  // the last coarse plane's window ends on the plane past the grid
+  if (ize & 1) {
+    if (grp == 0) {
+      write(ize >> 1, std::integral_constant<int, 0>{});
+    } else {
+      write(ize >> 1, std::integral_constant<int, 1>{});
+    }
+  }
+  wait_copies();
+}
+
 // The launch's Params from the host's fine table (A^3 int32 codes: plane *
 // 4 + bits, -1 none), output map (O^3 int32), interior rows ((2, taps, A,
 // O) float32, y then x) and runs (4 int32).  Each a_z's groups go into
@@ -683,25 +1219,57 @@ bool make_params(const int32_t* fine, int a, const int32_t* omap, int o,
   return mapped == n_out;
 }
 
-// The compiled-in form the launch's tables are, or kGeneric: the fine
-// table is the form's, every a_z one step, the y and x interior rows the
-// cell-centred ones and the output the 27 planes in order.
-int form_of(const int32_t* fine, int a, int o, const float* interior, const Params& prm) {
-  if (a != 3 || o != 3 || prm.nsteps != 3) return kGeneric;
+// Whether the tables are collapsed form f's: the fine table is the form's,
+// every a_z one step, the y and x interior rows the cell-centred ones and
+// the output the 27 planes in order.
+bool collapsed_holds(int f, const int32_t* fine, const float* interior, const Params& prm) {
+  if (prm.nsteps != 3) return false;
   for (int i = 0; i < 36; ++i) {
     const float w = cell_weight(i / 9, i / 3 % 3, i % 3);
-    if (interior[i] != w || interior[36 + i] != w) return kGeneric;
+    if (interior[i] != w || interior[36 + i] != w) return false;
   }
   for (int i = 0; i < 27; ++i) {
-    if (prm.out[i] != i) return kGeneric;
+    if (prm.out[i] != i || fine[i] != form_code(f, i / 9, i / 3 % 3, i % 3)) return false;
   }
-  for (int f : {kCompressed19, kStored27}) {
-    bool same = true;
-    for (int i = 0; i < 27 && same; ++i) same = fine[i] == form_code(f, i / 9, i / 3 % 3, i % 3);
-    for (int az = 0; az < 3 && same; ++az) same = prm.step_az[az] == az;
-    if (same) return f;
+  for (int az = 0; az < 3; ++az) {
+    if (prm.step_az[az] != az) return false;
   }
-  return kGeneric;
+  return true;
+}
+
+// Exact form f's parameters, false unless the tables are the form's: its
+// fine table and output map, the planes in and out, and each axis's
+// interior row, where its run holds any, the compiled-in one (interior:
+// (3, taps, A, O) float32, y, x, z; runs: 6 int32, y, x, z).
+bool exact_params(int f, const int32_t* fine, int a, const int32_t* omap, int o,
+                  int64_t n_planes, int64_t n_out, const float* interior, const int32_t* runs,
+                  ExactParams* p) {
+  const int na = exact_a(f);
+  if (a != na || o != kEO || n_planes != (f == kExact19 ? 10 : f == kExact117 ? 117 : 125) ||
+      n_out != (f == kExact19 ? 117 : 125)) {
+    return false;
+  }
+  for (int i = 0; i < na * na * na; ++i) {
+    if (fine[i] != exact_code(f, i / (na * na), i / na % na, i % na)) return false;
+    if (f == kExact19) p->code[i] = static_cast<signed char>(fine[i]);
+  }
+  for (int i = 0; i < kEO * kEO * kEO; ++i) {
+    const int v = exact_out(f, i / 25, i / 5 % 5, i % 5);
+    if (omap[i] != v) return false;
+    p->out[i] = static_cast<short>(v);
+  }
+  const int w = kTaps * na * kEO;
+  for (int k = 0; k < 3; ++k) {
+    p->runs[2 * k] = runs[2 * k];
+    p->runs[2 * k + 1] = runs[2 * k + 1];
+    if (runs[2 * k] >= runs[2 * k + 1]) continue;
+    for (int i = 0; i < w; ++i) {
+      if (interior[k * w + i] != exact_weight(na / 2, i / (na * kEO), i / kEO % na, i % kEO)) {
+        return false;
+      }
+    }
+  }
+  return true;
 }
 
 template <typename T, int A, int O, int V, int F>
@@ -730,7 +1298,7 @@ int launch_ao(const void* planes, void* out, int64_t n_planes, int64_t nz, int64
               int64_t nx, int64_t cz, int64_t cy, int64_t cx, const int32_t* fine,
               const int32_t* omap, int64_t n_out, const float* interior,
               const int32_t* runs, const void* starts, const void* weights, int64_t zchunk,
-              cudaStream_t stream) {
+              int form, cudaStream_t stream) {
   Params prm;
   if (!make_params(fine, A, omap, O, interior, runs, Smem<T, A, O>::kSlots, n_planes, n_out,
                    &prm)) {
@@ -745,7 +1313,10 @@ int launch_ao(const void* planes, void* out, int64_t n_planes, int64_t nz, int64
   constexpr int V = sizeof(T) == 4 ? 4 : 1;
   const bool vec = nx % V == 0;
   if constexpr (A == 3 && O == 3) {
-    const int f = form_of(fine, A, O, interior, prm);
+    const int f = form;
+    if ((f == kCompressed19 || f == kStored27) && !collapsed_holds(f, fine, interior, prm)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (f == kCompressed19) {
       return vec ? launch_v<T, A, O, V, kCompressed19>(p, q, nz, ny, nx, cz, cy, cx, s, w,
                                                       zchunk, prm, stream)
@@ -759,10 +1330,53 @@ int launch_ao(const void* planes, void* out, int64_t n_planes, int64_t nz, int64
                                                   prm, stream);
     }
   }
+  if (form != kGeneric) return static_cast<int>(cudaErrorInvalidValue);
   return vec ? launch_v<T, A, O, V, kGeneric>(p, q, nz, ny, nx, cz, cy, cx, s, w, zchunk, prm,
                                              stream)
              : launch_v<T, A, O, 1, kGeneric>(p, q, nz, ny, nx, cz, cy, cx, s, w, zchunk, prm,
                                              stream);
+}
+
+template <typename T, int F, int V>
+int launch_e(const T* planes, T* out, int64_t nz, int64_t ny, int64_t nx, int64_t cz,
+             int64_t cy, int64_t cx, const float* weights, int64_t zchunk,
+             const ExactParams& prm, cudaStream_t stream) {
+  constexpr int smem = ESmem<T, F>::kBytes;
+  auto* k = galerkin_product_kernel_exact<T, F, V>;
+  cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t chunks = (cz + zchunk - 1) / zchunk;
+  if (chunks > 65535 || mad::blocks_for(cy, kETy) > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(mad::blocks_for(cx, kTx), mad::blocks_for(cy, kETy),
+                  static_cast<unsigned>(chunks));
+  k<<<grid, dim3(kTx, kEWarps), smem, stream>>>(
+      planes, out, static_cast<int>(nz), static_cast<int>(ny), static_cast<int>(nx),
+      static_cast<int>(cz), static_cast<int>(cy), static_cast<int>(cx), weights,
+      static_cast<int>(zchunk), prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int F>
+int launch_exact(const void* planes, void* out, int64_t n_planes, int64_t nz, int64_t ny,
+                 int64_t nx, int64_t cz, int64_t cy, int64_t cx, const int32_t* fine,
+                 int64_t a, const int32_t* omap, int64_t o, int64_t n_out,
+                 const float* interior, const int32_t* runs, const void* weights,
+                 int64_t zchunk, cudaStream_t stream) {
+  ExactParams prm;
+  if (nz != 2 * cz || ny != 2 * cy || nx != 2 * cx ||
+      !exact_params(F, fine, static_cast<int>(a), omap, static_cast<int>(o), n_planes, n_out,
+                    interior, runs, &prm)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const T* p = static_cast<const T*>(planes);
+  T* q = static_cast<T*>(out);
+  const float* w = static_cast<const float*>(weights);
+  // 16-byte copies where every row starts on a 16-byte boundary
+  constexpr int V = 16 / sizeof(T);
+  return nx % V == 0 ? launch_e<T, F, V>(p, q, nz, ny, nx, cz, cy, cx, w, zchunk, prm, stream)
+                     : launch_e<T, F, 1>(p, q, nz, ny, nx, cz, cy, cx, w, zchunk, prm, stream);
 }
 
 template <typename T>
@@ -770,7 +1384,7 @@ int launch(const void* planes, void* out, int64_t n_planes, int64_t nz, int64_t 
            int64_t nx, int64_t cz, int64_t cy, int64_t cx, const void* host_fine,
            int64_t a, const void* host_out, int64_t o, int64_t n_out, const void* starts,
            const void* weights, const void* host_interior, const void* host_runs,
-           int64_t zchunk, void* stream) {
+           int64_t zchunk, int64_t form, void* stream) {
   const int64_t dims[] = {nz, ny, nx, cz, cy, cx};
   for (int64_t d : dims) {
     if (d < 1 || d > (int64_t(1) << 30)) return static_cast<int>(cudaErrorInvalidValue);
@@ -783,20 +1397,38 @@ int launch(const void* planes, void* out, int64_t n_planes, int64_t nz, int64_t 
   const auto* in = static_cast<const float*>(host_interior);
   const auto* r = static_cast<const int32_t*>(host_runs);
   const auto st = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case kExact19:
+      return launch_exact<T, kExact19>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, f, a, m, o,
+                                       n_out, in, r, weights, zchunk, st);
+    case kExact117:
+      return launch_exact<T, kExact117>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, f, a, m,
+                                        o, n_out, in, r, weights, zchunk, st);
+    case kExact125:
+      return launch_exact<T, kExact125>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, f, a, m,
+                                        o, n_out, in, r, weights, zchunk, st);
+    case kGeneric:
+    case kCompressed19:
+    case kStored27:
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int fm = static_cast<int>(form);
   if (a == 3 && o == 3) {
     return launch_ao<T, 3, 3>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, f, m, n_out, in,
-                              r, starts, weights, zchunk, st);
+                              r, starts, weights, zchunk, fm, st);
   }
   if (a == 3) {
     return launch_ao<T, 3, 5>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, f, m, n_out, in,
-                              r, starts, weights, zchunk, st);
+                              r, starts, weights, zchunk, fm, st);
   }
   if (o == 3) {
     return launch_ao<T, 5, 3>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, f, m, n_out, in,
-                              r, starts, weights, zchunk, st);
+                              r, starts, weights, zchunk, fm, st);
   }
   return launch_ao<T, 5, 5>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, f, m, n_out, in, r,
-                            starts, weights, zchunk, st);
+                            starts, weights, zchunk, fm, st);
 }
 
 }  // namespace
@@ -809,10 +1441,10 @@ int launch(const void* planes, void* out, int64_t n_planes, int64_t nz, int64_t 
       int64_t nx, int64_t cz, int64_t cy, int64_t cx, const void* host_fine,      \
       int64_t a, const void* host_out, int64_t o, int64_t n_out,                  \
       const void* starts, const void* weights, const void* host_interior,         \
-      const void* host_runs, int64_t zchunk, void* stream) {                      \
+      const void* host_runs, int64_t zchunk, int64_t form, void* stream) {        \
     return launch<T>(planes, out, n_planes, nz, ny, nx, cz, cy, cx, host_fine, a, \
                      host_out, o, n_out, starts, weights, host_interior,          \
-                     host_runs, zchunk, stream);                                  \
+                     host_runs, zchunk, form, stream);                            \
   }
 
 MAD_GALERKIN_ENTRY(f32, float)

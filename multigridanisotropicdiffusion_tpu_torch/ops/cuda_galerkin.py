@@ -33,7 +33,20 @@ order.
 the plain version for a CPU tensor; for a CUDA tensor it launches the kernel
 (float32 or float64) or raises.  ``cuda_galerkin_product.launches``, a
 ``collections.Counter``, counts launches by variant: ``"collapsed"`` or
-``"exact"``.
+``"exact"``; ``cuda_galerkin_product.forms`` counts them by the form the
+launch took (:data:`FORMS`).
+
+**Forms.**  The plan names the form its tables take (``ProductPlan.form``),
+and the kernel's entry point checks that the tables are that form's before
+it launches the form's compiled code.  The collapsed chain's two fine
+operators, on cell-centred y and x axes, with the clipped interior rows
+(:func:`cell_weight`): ``compressed19`` and ``stored27``.  The exact chain's
+three, on cell-centred axes, with the unclipped interior rows
+(:func:`exact_weight`) and every row of each axis table inside its window
+``2 J - 1 .. 2 J + 2`` and within the interior row's non-zero entries
+(:func:`window_table`): ``exact19`` (the compressed operator -> 117 planes),
+``exact117`` (117 stored planes -> 125) and ``exact125`` (125 -> 125).  Any
+other table is ``generic``: the tables are read at run time.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.grids import CELL
 from ..core.stencil import StencilOperator, stencil_offsets
 from ..utils.build import check_launch, kernel, require_cuda, stream_of
 from .compressed import CompressedDCAOperator
@@ -54,6 +68,8 @@ from .transfer import coarse_size, prolong_taps, restrict_taps
 
 #: the storage types the kernel is built for
 KERNEL_DTYPES = (torch.float32, torch.float64)
+#: the kernel's forms, by their code in ``csrc/galerkin_product.cu``
+FORMS = ("generic", "compressed19", "stored27", "exact19", "exact117", "exact125")
 
 #: the kernel's tile (``csrc/galerkin_product.cu``): a block owns
 #: ``TILE_X`` coarse x by ``TILE_Y`` coarse y and marches in z; it stages
@@ -67,6 +83,9 @@ TAPS = 4
 #: least ``MIN_ZCHUNK`` coarse planes long (each chunk re-reads 1-2 fine
 #: planes at its start), or an eighth of a small level's
 BLOCKS, MIN_ZCHUNK = 4096, 8
+#: the exact forms' tile: ``TILE_X`` coarse x by ``EXACT_TILE_Y`` coarse y,
+#: the fine rows ``2 y0 - 1 .. 2 y0 + 2 EXACT_TILE_Y`` staged
+EXACT_TILE_Y = 2
 
 
 class ProductPlan(NamedTuple):
@@ -91,13 +110,15 @@ class ProductPlan(NamedTuple):
     #: float32 ``(cz + cy + cx, TAPS, A, O)``: the pair kernels per axis
     #: (dyadic rationals, exact in float32)
     weights: np.ndarray
-    #: float32 ``(2, TAPS, A, O)``: the y and x tables' interior row, the one
-    #: their rows ``runs[0]:runs[1]`` (y) and ``runs[2]:runs[3]`` (x) hold,
-    #: each starting at ``2 J - 1``
+    #: float32 ``(3, TAPS, A, O)``: the y, x and z tables' interior row, the
+    #: one their rows ``runs[0]:runs[1]`` (y), ``runs[2]:runs[3]`` (x) and
+    #: ``runs[4]:runs[5]`` (z) hold, each starting at ``2 J - 1``
     interior: np.ndarray
     runs: np.ndarray
     #: coarse z planes per block
     zchunk: int
+    #: the kernel's form for these tables (:data:`FORMS`)
+    form: str
 
 
 def _frozen(a: np.ndarray) -> np.ndarray:
@@ -135,6 +156,132 @@ def axis_table(fine_n: int, centering: str, fine_radius: int, coarse_radius: int
         lens[j] = max(lens[j], t + 1)
     return (_frozen(r_start.astype(np.int32)), _frozen(lens),
             _frozen(w.astype(np.float32)))
+
+
+def cell_weight(t: int, a: int, o: int) -> float:
+    """The collapsed chain's interior row on a cell-centred axis (the
+    kernel's ``cell_weight``): tap ``t`` (fine ``2 J - 1 + t``), fine offset
+    component ``a - 1``, output ``o - 1``: the restriction's ``1 3 3 1 / 8``
+    times the prolongation's 3/4 and 1/4 of fine row ``2 J - 2 + t + a`` onto
+    coarse ``J + o``, clipped to ``[-1, 1]``."""
+    f = t - 2 + a
+    m = f // 2
+    k1 = m - 1 if f % 2 == 0 else m + 1
+    w = (0.75 if max(-1, min(1, m)) == o - 1 else 0.0) + (
+        0.25 if max(-1, min(1, k1)) == o - 1 else 0.0)
+    return (0.125, 0.375, 0.375, 0.125)[t] * w
+
+
+def exact_weight(t: int, a: int, o: int, ra: int) -> float:
+    """The exact chain's interior row on a cell-centred axis (the kernel's
+    ``exact_weight``): tap ``t``, fine offset component ``a - ra``, output
+    ``o - 2``, unclipped."""
+    f = t - 1 + a - ra
+    m = f // 2
+    k1 = m - 1 if f % 2 == 0 else m + 1
+    w = (0.75 if m == o - 2 else 0.0) + (0.25 if k1 == o - 2 else 0.0)
+    return (0.125, 0.375, 0.375, 0.125)[t] * w
+
+
+@functools.lru_cache(maxsize=None)
+def interior_row(A: int, O: int) -> np.ndarray:
+    """float32 ``(TAPS, A, O)``: the compiled-in interior row of the forms
+    with ``A`` fine and ``O`` output components (collapsed: 3 x 3, exact:
+    3 or 5 x 5); read-only."""
+    if O == 3:
+        row = [[[cell_weight(t, a, o) for o in range(3)] for a in range(3)]
+               for t in range(TAPS)]
+    else:
+        row = [[[exact_weight(t, a, o, A // 2) for o in range(O)] for a in range(A)]
+               for t in range(TAPS)]
+    return _frozen(np.array(row, dtype=np.float32))
+
+
+def window_table(starts: np.ndarray, weights: np.ndarray):
+    """One axis table re-indexed to its rows' windows ``2 J - 1 .. 2 J + 2``
+    (the exact forms' march): ``w[J, t]`` at tap ``starts[J] + t - (2 J -
+    1)``; None where a non-zero weight falls outside its window or outside
+    the interior row's non-zero entries."""
+    c = len(starts)
+    pattern = interior_row(weights.shape[2], weights.shape[3]) != 0
+    out = np.zeros_like(weights)
+    shift = starts.astype(np.int64) - (2 * np.arange(c) - 1)
+    for t in range(TAPS):
+        tt = t + shift
+        live = weights[:, t].reshape(c, -1).any(axis=1)
+        if ((tt < 0) | (tt >= TAPS))[live].any():
+            return None
+        j = np.nonzero(live)[0]
+        out[j, tt[j]] = weights[j, t]
+    if (out != 0)[:, ~pattern].any():
+        return None
+    return out
+
+
+def _fine_table(fine_offsets, terms, ra: int) -> np.ndarray:
+    """``(A, A, A)`` int32: ``plane * 4 + 2 * negate + centre`` per fine
+    offset, -1 where none."""
+    A = 2 * ra + 1
+    fine = np.full((A, A, A), -1, dtype=np.int32)
+    for off, (p, sign) in zip(fine_offsets, terms):
+        centre = all(o == 0 for o in off)
+        fine[tuple(o + ra for o in off)] = 4 * p + (2 if sign > 0 else 0) + int(centre)
+    return fine
+
+
+def _out_map(offsets, ro: int) -> np.ndarray:
+    """``(O, O, O)`` int32: output plane per offset, -1 where none."""
+    O = 2 * ro + 1
+    out_map = np.full((O, O, O), -1, dtype=np.int32)
+    for k, off in enumerate(offsets):
+        out_map[tuple(o + ro for o in off)] = k
+    return out_map
+
+
+@functools.lru_cache(maxsize=None)
+def form_tables():
+    """Per compiled-in form, its ``(fine, out_map)`` tables as a plan holds
+    them: the collapsed chain's fine operators (the compressed 19-point
+    operator's planes with their signs, 27 stored planes) onto 27 outputs,
+    and the exact chain's (that compressed operator onto the 5^3 box less
+    its corners, 117 planes; 117 and 125 stored planes onto 125)."""
+    c19 = plane_table(CompressedDCAOperator(torch.zeros((10, 1, 1, 1)), 3))
+    s27 = stencil_offsets(3, 1, drop_corners=False)
+    s117 = _structural_offsets((CELL,) * 3, stencil_offsets(3), (2, 2, 2))
+    s125 = stencil_offsets(3, 2, drop_corners=False)
+
+    def stored(offsets):
+        return offsets, tuple((k, 1.0) for k in range(len(offsets)))
+
+    tables = {}
+    for form, (offsets, terms), ra, outs in (
+            ("compressed19", (c19[0], c19[2]), 1, s27), ("stored27", stored(s27), 1, s27),
+            ("exact19", (c19[0], c19[2]), 1, s117), ("exact117", stored(s117), 2, s125),
+            ("exact125", stored(s125), 2, s125)):
+        tables[form] = (_frozen(_fine_table(offsets, terms, ra)),
+                        _frozen(_out_map(outs, max(abs(o) for off in outs for o in off))))
+    return tables
+
+
+def _form(centering, fine, out_map, interior, runs, windows) -> str:
+    """The form the kernel takes for these tables (the entry point checks
+    them against the form's compiled tables)."""
+    A, O = fine.shape[0], out_map.shape[0]
+    for form, (f, m) in form_tables().items():
+        if f.shape != fine.shape or m.shape != out_map.shape or not (
+                np.array_equal(f, fine) and np.array_equal(m, out_map)):
+            continue
+        row = interior_row(A, O)
+        if form.startswith("exact"):
+            # every axis cell-centred, its rows in their windows, and the
+            # interior rows on their (non-empty) runs the compiled one
+            if (all(c == CELL for c in centering) and all(w is not None for w in windows)
+                    and all(runs[2 * k] >= runs[2 * k + 1]
+                            or np.array_equal(interior[k], row) for k in range(3))):
+                return form
+        elif np.array_equal(interior[0], row) and np.array_equal(interior[1], row):
+            return form
+    return "generic"
 
 
 def interior_run(starts: np.ndarray, weights: np.ndarray):
@@ -201,13 +348,8 @@ def product_plan(fine_shape: Tuple[int, int, int], centering: Tuple[str, ...],
     (zs, zl, wz), (ys, yl, wy), (xs, _, wx) = tables
     _check_geometry(zs, zl, ys, yl, xs)
     A, O = 2 * ra + 1, 2 * ro + 1
-    fine = np.full((A, A, A), -1, dtype=np.int32)
-    for off, (p, sign) in zip(fine_offsets, terms):
-        centre = all(o == 0 for o in off)
-        fine[tuple(o + ra for o in off)] = 4 * p + (2 if sign > 0 else 0) + int(centre)
-    out_map = np.full((O, O, O), -1, dtype=np.int32)
-    for k, off in enumerate(offsets):
-        out_map[tuple(o + ro for o in off)] = k
+    fine = _fine_table(fine_offsets, terms, ra)
+    out_map = _out_map(offsets, ro)
     # every output that can receive a contribution has a plane (as the
     # direct path checks against the structural table)
     reach = [w.any(axis=(0, 1)) for w in (wz, wy, wx)]  # (A, O) per axis
@@ -216,29 +358,44 @@ def product_plan(fine_shape: Tuple[int, int, int], centering: Tuple[str, ...],
                 all(reach[d][a[d] + ra, o[d]] for d in range(3)) for a in fine_offsets):
             raise AssertionError(f"the product reaches offset {o} outside the table")
     cshape = tuple(coarse_size(n, c) for n, c in zip(fine_shape, centering))
-    # the exact variant's five output z components take a pass each
-    tiles = -(-cshape[2] // TILE_X) * -(-cshape[1] // TILE_Y) * (1 if O == 3 else O)
+    (iy, ylo, yhi), (ix, xlo, xhi), (iz, zlo, zhi) = (
+        interior_run(ys, wy), interior_run(xs, wx), interior_run(zs, wz))
+    interior = np.stack([iy, ix, iz])
+    runs = np.array([ylo, yhi, xlo, xhi, zlo, zhi], dtype=np.int32)
+    windows = ([window_table(st, w) for st, w in ((ys, wy), (xs, wx), (zs, wz))]
+               if O == 5 else [None] * 3)
+    form = _form(tuple(centering), fine, out_map, interior, runs, windows)
+    if form.startswith("exact"):
+        tiles = -(-cshape[2] // TILE_X) * -(-cshape[1] // EXACT_TILE_Y)
+    else:
+        # the generic exact variant's five output z components take a pass each
+        tiles = -(-cshape[2] // TILE_X) * -(-cshape[1] // TILE_Y) * (1 if O == 3 else O)
     zchunk = max(min(MIN_ZCHUNK, max(2, cshape[0] // 8)), -(-cshape[0] // -(-BLOCKS // tiles)))
-    (iy, ylo, yhi), (ix, xlo, xhi) = interior_run(ys, wy), interior_run(xs, wx)
     return ProductPlan(
         fine_shape=tuple(fine_shape), coarse_shape=cshape, A=A, O=O, offsets=offsets,
         fine=_frozen(fine), out_map=_frozen(out_map),
         starts=_frozen(np.concatenate([zs, ys, xs, zl]).astype(np.int32)),
         weights=_frozen(np.concatenate([wz, wy, wx])),
-        interior=_frozen(np.stack([iy, ix])),
-        runs=_frozen(np.array([ylo, yhi, xlo, xhi], dtype=np.int32)),
-        zchunk=min(zchunk, cshape[0]))
+        interior=_frozen(interior), runs=_frozen(runs),
+        zchunk=min(zchunk, cshape[0]), form=form)
 
 
 def kernel_weights(plan: ProductPlan) -> np.ndarray:
     """The axis weights as the kernel reads them, flat: the z and y tables
     as they are, the x table transposed to ``(TAPS * A * O, cx)``, so that a
-    warp's lanes (consecutive coarse x) read consecutive values.  (Interior
-    rows come from the kernel's parameters; a border row's weights are
-    read whole, so that a coupling that leaves the grid sums exact zeros.)"""
+    warp's lanes (consecutive coarse x) read consecutive values; each
+    re-indexed to its rows' windows (:func:`window_table`) for the exact
+    forms.  (Interior rows come from the kernel's parameters or its
+    compiled-in forms; a border row's weights are read from here, so that a
+    coupling that leaves the grid sums exact zeros.)"""
     cz, cy, cx = plan.coarse_shape
-    wx = plan.weights[cz + cy:].reshape(cx, -1).T
-    return np.concatenate([plan.weights[:cz + cy].reshape(-1), wx.reshape(-1)])
+    w = plan.weights
+    if plan.form.startswith("exact"):
+        s = plan.starts
+        w = np.concatenate([window_table(s[lo:hi], w[lo:hi])
+                            for lo, hi in ((0, cz), (cz, cz + cy), (cz + cy, cz + cy + cx))])
+    wx = w[cz + cy:].reshape(cx, -1).T
+    return np.concatenate([w[:cz + cy].reshape(-1), wx.reshape(-1)])
 
 
 def _dense(fine_n: int, starts: np.ndarray, weights: np.ndarray) -> np.ndarray:
@@ -329,10 +486,13 @@ def cuda_galerkin_product(fine_op, centering: Sequence[str],
         planes.data_ptr(), out.data_ptr(), planes.shape[0], *plan.fine_shape,
         *plan.coarse_shape, plan.fine.ctypes.data, plan.A, plan.out_map.ctypes.data,
         plan.O, len(plan.offsets), starts.data_ptr(), weights.data_ptr(),
-        plan.interior.ctypes.data, plan.runs.ctypes.data, plan.zchunk, stream_of(planes))
+        plan.interior.ctypes.data, plan.runs.ctypes.data, plan.zchunk,
+        FORMS.index(plan.form), stream_of(planes))
     check_launch(err, name)
     cuda_galerkin_product.launches["collapsed" if collapse else "exact"] += 1
+    cuda_galerkin_product.forms[plan.form] += 1
     return StencilOperator(out, plan.offsets)
 
 
 cuda_galerkin_product.launches = collections.Counter()
+cuda_galerkin_product.forms = collections.Counter()

@@ -114,10 +114,10 @@ SIGNATURES = {
     # planes, out, planes in, fine dims (3), coarse dims (3), host fine table
     # (A^3 int32), A, host output map (O^3 int32), O, planes out, axis
     # starts (int32), axis weights (float32), host interior rows (float32),
-    # host interior runs (4 int32), coarse z planes per block, stream
-    # (``ops.cuda_galerkin.product_plan``)
+    # host interior runs (6 int32), coarse z planes per block, the form's
+    # code, stream (``ops.cuda_galerkin.product_plan``)
     "mad_galerkin_product": (_P, _P, _I) + (_I,) * 6 + (_P, _I, _P, _I, _I, _P, _P, _P, _P,
-                                                         _I, _STREAM),
+                                                         _I, _I, _STREAM),
 }
 
 #: entry points built for some storage types only (the rest: every type of

@@ -338,14 +338,31 @@ def _b16_fine_op(form, shape, gen, device):
     if form == "compressed":
         return compressed.assemble_compressed_dca(_tensor(shape, gen, device).double(),
                                                   (1.0, 0.9, 1.1), 0.1)
+    if form == "stored117":
+        return _random_op(shape, 2, gen, device, offsets=galerkin._structural_offsets(
+            (CELL,) * 3, stencil_offsets(3), (2, 2, 2)))
     radius = 2 if form == "stored125" else 1
     return _random_op(shape, radius, gen, device, drop_corners=form == "stored19")
+
+
+def _b16_form(form, shape, collapse):
+    """The form B16 takes (``cuda_galerkin.FORMS``): on cell-centred axes
+    the collapsed chain's fine operators onto 27 planes, and the exact
+    chain's onto 117 or 125; any other operator or axis the generic form."""
+    if any(n % 2 for n in shape):
+        return "generic"
+    if collapse:
+        return {"compressed": "compressed19", "stored27": "stored27"}.get(form, "generic")
+    return {"compressed": "exact19", "stored117": "exact117",
+            "stored125": "exact125"}.get(form, "generic")
 
 
 B16_CASES = [("compressed", (64, 64, 64)), ("compressed", (65, 65, 65)),
              ("compressed", (48, 40, 36)), ("compressed", (4, 33, 70)),
              ("stored19", (37, 41, 35)), ("stored27", (64, 64, 64)),
-             ("stored27", (65, 18, 9)), ("stored125", (33, 36, 40))]
+             ("stored27", (65, 18, 9)), ("stored125", (33, 36, 40)),
+             ("compressed", (20, 46, 134)), ("stored117", (36, 42, 70)),
+             ("stored125", (40, 38, 132)), ("stored125", (6, 4, 8))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
@@ -354,17 +371,22 @@ B16_CASES = [("compressed", (64, 64, 64)), ("compressed", (65, 65, 65)),
 def test_b16_matches_the_eager_path(device, dtype, collapse, form, shape):
     """A compressed and stored fine operators (radius 1 and 2), both
     variants, cell and vertex axes, even, odd and non-cubic sizes, a coarse
-    axis of 2, x and y past one tile: the kernel's planes, offsets and dtype
+    axis of 2, x and y past one tile and coarse sizes that are not whole
+    tiles, every form (the exact chain's three with interior and border x
+    tiles, y rows and z planes): the kernel's planes, offsets and dtype
     against the eager path in float64 on the same values, and its exact
     zeros."""
     gen = torch.Generator(device=device).manual_seed(len(shape) + shape[0])
     op = _b16_fine_op(form, shape, gen, device).astype(dtype)
     cent = _centering(shape)
     before = cuda_galerkin.cuda_galerkin_product.launches.copy()
+    forms = cuda_galerkin.cuda_galerkin_product.forms.copy()
     got = galerkin.assemble_galerkin_parabolic(op, cent, collapse=collapse, use_kernels=True)
     torch.cuda.synchronize()
     variant = "collapsed" if collapse else "exact"
     assert cuda_galerkin.cuda_galerkin_product.launches - before == {variant: 1}
+    assert (cuda_galerkin.cuda_galerkin_product.forms - forms
+            == {_b16_form(form, shape, collapse): 1})
     want = galerkin.assemble_galerkin_parabolic(op.astype(torch.float64), cent,
                                                 collapse=collapse)
     assert got.offsets == want.offsets and got.coeffs.dtype == dtype
@@ -397,32 +419,40 @@ def test_b16_launches_once_per_galerkin_level(device):
 @pytest.mark.parametrize("variant,other", [("exact", "collapsed"), ("collapsed", "exact")])
 def test_b16_counts_its_launches_by_variant(device, variant, other):
     """A 128^3 hierarchy counts each Galerkin level under its own variant
-    and none under the other."""
+    and none under the other, and under its form: the exact chain's
+    exact19, exact117, then exact125; the collapsed chain's compressed19,
+    then stored27."""
     gen = torch.Generator(device=device).manual_seed(3)
     shape = (128,) * 3
     levels = build_level_descriptors(shape)
     before = cuda_galerkin.cuda_galerkin_product.launches.copy()
+    forms = cuda_galerkin.cuda_galerkin_product.forms.copy()
     hier = build_hierarchy(_tensor(shape, gen, device), levels, 0.1, "galerkin", "compressed",
                            True, variant)
     torch.cuda.synchronize()
     got = cuda_galerkin.cuda_galerkin_product.launches - before
     assert got == {variant: len(levels) - 1} and got[other] == 0
+    assert cuda_galerkin.cuda_galerkin_product.forms - forms == (
+        {"exact19": 1, "exact117": 1, "exact125": len(levels) - 3} if variant == "exact"
+        else {"compressed19": 1, "stored27": len(levels) - 2})
     planes = [len(op.offsets) for op in hier.operators[1:]]
     assert planes == ([117] + [125] * (len(levels) - 2) if variant == "exact"
                       else [27] * (len(levels) - 1))
 
 
-def test_b16_galerkin_levels_wait_for_nothing(device, monkeypatch):
+@pytest.mark.parametrize("variant", ["collapsed", "exact"])
+def test_b16_galerkin_levels_wait_for_nothing(device, monkeypatch, variant):
     """Once its plans are on the card, a 128^3 Galerkin ``build_hierarchy``
-    builds its Galerkin levels (B16, the span ``madt.mad.setup.galerkin``)
-    without a synchronising call: ``torch.cuda.set_sync_debug_mode('error')``
-    around each raises nothing.  (The coarsest level's dense LU and its
-    host check, outside that span, do wait.)"""
+    builds its Galerkin levels (B16, the span ``madt.mad.setup.galerkin``),
+    collapsed or exact, without a synchronising call:
+    ``torch.cuda.set_sync_debug_mode('error')`` around each raises nothing.
+    (The coarsest level's dense LU and its host check, outside that span,
+    do wait.)"""
     gen = torch.Generator(device=device).manual_seed(4)
     shape = (128,) * 3
     t = _tensor(shape, gen, device)
     levels = build_level_descriptors(shape)
-    build_hierarchy(t, levels, 0.1, "galerkin", "compressed", True)
+    build_hierarchy(t, levels, 0.1, "galerkin", "compressed", True, variant)
     torch.cuda.synchronize()
     real = mad.assemble_galerkin_parabolic
 
@@ -435,7 +465,7 @@ def test_b16_galerkin_levels_wait_for_nothing(device, monkeypatch):
 
     monkeypatch.setattr(mad, "assemble_galerkin_parabolic", strict)
     before = cuda_galerkin.cuda_galerkin_product.launches.total()
-    build_hierarchy(t, levels, 0.1, "galerkin", "compressed", True)
+    build_hierarchy(t, levels, 0.1, "galerkin", "compressed", True, variant)
     torch.cuda.synchronize()
     assert cuda_galerkin.cuda_galerkin_product.launches.total() - before == len(levels) - 1
 

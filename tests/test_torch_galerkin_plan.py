@@ -6,7 +6,11 @@ table ``plane_getter``'s planes and signs.  The plan applied
 (``galerkin_product_plain``) and an emulation of the kernel's march (its
 blocks, staged tiles, stages and z windows, step for step as
 ``csrc/galerkin_product.cu`` runs them) are held to the eager path in
-float64: 1e-12 of the largest diagonal value, a summation-order difference.
+float64: 1e-12 of the largest diagonal value, a summation-order difference;
+for the exact chain's three compiled-in forms the emulation follows their
+own march (``galerkin_product_kernel_exact``).  The form each plan names
+(``ProductPlan.form``) is checked on whole hierarchies, and the compiled-in
+interior rows against each level's rows from ``pair_rows``.
 """
 
 import itertools
@@ -21,7 +25,7 @@ from multigridanisotropicdiffusion_tpu_torch.core.grids import (
     VERTEX,
     build_level_descriptors,
 )
-from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator
+from multigridanisotropicdiffusion_tpu_torch.core.stencil import StencilOperator, stencil_offsets
 from multigridanisotropicdiffusion_tpu_torch.core.symfield import as_sym_planes
 from multigridanisotropicdiffusion_tpu_torch.ops import compressed, dca, galerkin
 from multigridanisotropicdiffusion_tpu_torch.ops import cuda_galerkin as cg
@@ -39,6 +43,14 @@ def _centering(shape):
 
 
 def _fine_op(shape, form, seed=0):
+    if form == "random125":
+        # random planes on the 5^3 box (an exact level's layout), non-zero on
+        # every border, a dominant diagonal
+        offsets = stencil_offsets(3, 2, drop_corners=False)
+        coeffs = torch.as_tensor(np.random.default_rng(seed).normal(
+            0.0, 0.05, (len(offsets), *shape)))
+        coeffs[offsets.index((0, 0, 0))] = coeffs.abs().sum(0) + 1.0
+        return StencilOperator(coeffs, offsets)
     mat = make_spd_tensor_field(np.random.default_rng(seed), shape, 3, hi=3.0)
     t = as_sym_planes(mat, shape)
     if form == "compressed":
@@ -170,9 +182,104 @@ def _params(plan, n_planes, plane_elems):
     return slot_plane, ax_slot, ax_bits, nslot, order, last
 
 
+def _emulate_exact(plan, planes):
+    """The exact forms' march (``galerkin_product_kernel_exact``), block by
+    block, fine plane by fine plane and a_z by a_z (lanes, warps and staged
+    rows as numpy axes), from the fine ``(P, Z, Y, X)`` float64 planes:
+    every table row read in its window ``2 J - 1 .. 2 J + 2``, the
+    compiled-in interior row (``cg.interior_row``) on interior x tiles, y
+    rows and z planes, the tables' rows elsewhere, the staged tile zero past
+    the grid."""
+    A, O, T = plan.A, plan.O, cg.TAPS
+    nz, ny, nx = plan.fine_shape
+    cz, cy, cx = plan.coarse_shape
+    assert (nz, ny, nx) == (2 * cz, 2 * cy, 2 * cx)
+    kw = T * A * O
+    w = cg.kernel_weights(plan).astype(np.float64)
+    wz = w[:cz * kw].reshape(cz, T, A, O)
+    wy = w[cz * kw:(cz + cy) * kw].reshape(cy, T, A, O)
+    wx = w[(cz + cy) * kw:].reshape(kw, cx).T.reshape(cx, T, A, O)  # stored transposed
+    row = cg.interior_row(A, O).astype(np.float64)
+    runs = plan.runs
+    codes = plan.fine.reshape(A, A, A)
+    ty, tx = cg.EXACT_TILE_Y, cg.TILE_X
+    out = np.full((len(plan.offsets), cz, cy, cx), np.nan)
+    lane = np.arange(tx)
+    for z0, by, bx in itertools.product(range(0, cz, plan.zchunk), range(-(-cy // ty)),
+                                        range(-(-cx // tx))):
+        z1 = min(z0 + plan.zchunk, cz)
+        x0, y0 = bx * tx, by * ty
+        jx, jy = x0 + lane, y0 + np.arange(ty)
+        jxc, jyc = np.minimum(jx, cx - 1), np.minimum(jy, cy - 1)
+        # the staged tile: fine rows 2 y0 - 1 .., a lane's taps its fine
+        # columns 2 jx - 1 .. 2 jx + 2 (staged from 2 x0 - 4)
+        fy = 2 * y0 - 1 + np.arange(2 * ty + 2)
+        fx = (2 * x0 - cg.ALIGN) + (2 * lane + 2)[:, None] + 1 + np.arange(T)  # (lane, t)
+        ok = (((fy >= 0) & (fy < ny))[:, None, None]
+              & ((fx >= 0) & (fx < nx))[None])                               # (row, lane, t)
+        fyc, fxc = np.clip(fy, 0, ny - 1), np.clip(fx, 0, nx - 1)
+        xborder = x0 < runs[2] or x0 + tx > runs[3]
+        yborder = (jyc < runs[0]) | (jyc >= runs[1])
+        hx = wx[jxc] if xborder else np.broadcast_to(row, (tx, T, A, O))     # (lane, t, a, o)
+        hy = np.where(yborder[:, None, None, None], wy[jyc], row[None])        # (warp y, t, a, o)
+        acc0 = np.zeros((ty, O, O, O, tx))   # (warp y, o_z, o_y, o_x, lane)
+        acc1 = np.zeros_like(acc0)
+        izs, ize = max(2 * z0 - 1, 0), min(2 * z1, nz - 1)
+        for iz in range(izs, ize + 1):
+            odd = iz % 2 == 1
+            cur = iz // 2 if odd else iz // 2 - 1  # iz feeds coarse planes cur, cur + 1
+            zin = cur >= runs[4] and cur + 1 < runs[5]
+            t0 = 2 if odd else 3
+            for az in range(A):
+                # x stage: u[row, a_y, o_x, lane] of the staged values (zero
+                # past the grid), s = -c off the centre, 1 - c on it
+                s_ = np.zeros((A, A, len(fy), tx, T))
+                for ay, ax in itertools.product(range(A), range(A)):
+                    code = int(codes[az, ay, ax])
+                    if code < 0:
+                        continue
+                    v = np.where(ok, planes[code >> 2, iz][fyc[:, None, None], fxc[None]], 0.0)
+                    s_[ay, ax] = (-v if code & 2 else v) + (1.0 if code & 1 else 0.0)
+                u = np.einsum("ltao,yarlt->ryol", hx, s_)
+                # y stage: each warp's coarse y, its fine rows 2 jy - 1 + t
+                v = np.zeros((ty, O, O, tx))  # (warp y, o_y, o_x, lane)
+                for yl in range(ty):
+                    v[yl] = np.einsum("tap,taol->pol", hy[yl], u[2 * yl:2 * yl + T])
+                # z stage: the two coarse planes iz feeds
+                if zin:
+                    h0, h1 = row[t0, az], row[t0 - 2, az]
+                else:
+                    h0 = wz[cur, t0, az] if cur >= 0 else np.zeros(O)
+                    h1 = wz[cur + 1, t0 - 2, az] if cur + 1 < cz else np.zeros(O)
+                acc0 += h0[None, :, None, None, None] * v[:, None]
+                acc1 += h1[None, :, None, None, None] * v[:, None]
+            done = (cur if not odd and cur >= z0 else None,
+                    iz // 2 if odd and iz == ize else None)
+            for jz in done:
+                if jz is None:
+                    continue
+                for oz, oy, ox in itertools.product(range(O), repeat=3):
+                    p = plan.out_map[oz, oy, ox]
+                    if p < 0:
+                        continue
+                    val = -acc0[:, oz, oy, ox]
+                    if (oz, oy, ox) == (2, 2, 2):
+                        val = 1.0 + val
+                    for yl in np.nonzero(jy < cy)[0]:
+                        live = jx < cx
+                        assert np.isnan(out[p, jz, jy[yl], jx[live]]).all()
+                        out[p, jz, jy[yl], jx[live]] = val[yl, live]
+            if not odd:
+                acc0, acc1 = acc1, np.zeros_like(acc1)
+    return out
+
+
 def _emulate(plan, planes):
     """The kernel's arithmetic, block by block and step by step (lanes and
-    warps as numpy axes), from the fine ``(P, Z, Y, X)`` float64 planes."""
+    warps as numpy axes), from the fine ``(P, Z, Y, X)`` float64 planes;
+    the exact forms' march for their plans (:func:`_emulate_exact`)."""
+    if plan.form.startswith("exact"):
+        return _emulate_exact(plan, planes)
     A, O = plan.A, plan.O
     noz = 3 if O == 3 else 1
     npass = O // noz
@@ -186,7 +293,7 @@ def _emulate(plan, planes):
     wz = w[:cz * kw].reshape(cz, kw)
     wy = w[cz * kw:(cz + cy) * kw].reshape(cy, kw)
     wx = w[(cz + cy) * kw:].reshape(kw, cx).T            # stored transposed
-    iy, ix = plan.interior.reshape(2, kw).astype(np.float64)
+    iy, ix = plan.interior[:2].reshape(2, kw).astype(np.float64)
     runs = plan.runs
     flat = planes.reshape(-1)
     plane_elems = nz * ny * nx
@@ -276,6 +383,9 @@ def _emulate(plan, planes):
 
 
 @pytest.mark.parametrize("shape,form,collapse,levels", [
+    ((16, 12, 264), "compressed", False, 2),
+    ((12, 8, 132), "random125", False, 1),
+    ((12, 14, 20), "compressed", False, 1),
     ((16, 16, 16), "compressed", True, 2),
     ((17, 17, 17), "stored", False, 2),
     ((12, 10, 9), "compressed", False, 2),
@@ -289,11 +399,15 @@ def test_emulated_kernel_matches_the_eager_path(shape, form, collapse, levels):
     agrees with the eager path: compressed and stored fine operators,
     radius 1 and (the exact variant's second level) radius 2, both
     variants, cell and vertex axes (a vertex axis's last row one further),
-    several x and y tiles, z chunks."""
+    several x and y tiles, z chunks; the exact forms' march on the exact
+    chain's three tables (exact19, exact117 and exact125), with interior
+    and border x tiles, y rows and z planes, partial tiles."""
     op = _fine_op(shape, form)
+    forms = []
     for _ in range(levels):
         cent = _centering(op.shape)
         plan = _plan(op, cent, collapse)
+        forms.append(plan.form)
         offsets, planes, _ = galerkin.plane_table(op)
         got = _emulate(plan, planes.numpy())
         assert not np.isnan(got).any()
@@ -301,6 +415,9 @@ def test_emulated_kernel_matches_the_eager_path(shape, form, collapse, levels):
         err = np.abs(got - want.coeffs.numpy()).max() / want.diag.abs().max().item()
         assert err <= 1e-12
         op = want
+    if not collapse and all(n % 2 == 0 for n in shape):
+        assert forms == (["exact125"] if form == "random125"
+                         else ["exact19", "exact117"][:levels])
 
 
 @pytest.mark.parametrize("shape", [(512,) * 3, (69, 77, 69), (65, 65, 65), (48, 40, 36),
@@ -310,25 +427,99 @@ def test_plan_fits_the_kernel_on_every_level(shape, collapse):
     """Every Galerkin level of these hierarchies plans within the kernel's
     tile and march (``_check_geometry``), its launch grid within the card's
     limits, and the fine and output tables within the kernel's sizes."""
-    levels = build_level_descriptors(shape)
-    offsets, terms = None, None
-    fine = levels[0].shape
     radius = 1
-    for lvl in levels[1:]:
-        if offsets is None:  # level 0: the compressed operator's 19 offsets
-            op = compressed.CompressedDCAOperator(torch.zeros((10, 1, 1, 1)), 3)
-            offsets, _, terms = galerkin.plane_table(op)
-        plan = cg.product_plan(fine, lvl.centering, offsets, terms, collapse)
+    for lvl, plan in _chain_plans(shape, collapse):
         assert plan.coarse_shape == lvl.shape
         assert plan.A == 2 * radius + 1 and plan.O in (3, 5)
-        npass = 1 if plan.O == 3 else plan.O
+        npass = 1 if plan.O == 3 or plan.form.startswith("exact") else plan.O
         assert math.ceil(lvl.shape[0] / plan.zchunk) * npass <= 65535
         assert 1 <= plan.zchunk <= lvl.shape[0]
-        # the next level reads this one's planes as a stored operator
+        radius = max(abs(o) for off in plan.offsets for o in off)
+
+
+def _chain_plans(shape, collapse):
+    """``(level, plan)`` of each Galerkin level of ``shape``'s hierarchy:
+    level 1 from the compressed operator's 19 offsets, each level below
+    from the one above's planes as a stored operator."""
+    levels = build_level_descriptors(shape)
+    op = compressed.CompressedDCAOperator(torch.zeros((10, 1, 1, 1)), 3)
+    offsets, _, terms = galerkin.plane_table(op)
+    fine = levels[0].shape
+    for lvl in levels[1:]:
+        plan = cg.product_plan(fine, lvl.centering, offsets, terms, collapse)
+        yield lvl, plan
         offsets = plan.offsets
         terms = tuple((k, 1.0) for k in range(len(offsets)))
-        radius = max(abs(o) for off in offsets for o in off)
         fine = lvl.shape
+
+
+@pytest.mark.parametrize("shape,collapse,forms", [
+    ((512,) * 3, False, ["exact19", "exact117"] + ["exact125"] * 4),
+    ((512,) * 3, True, ["compressed19"] + ["stored27"] * 5),
+    ((128,) * 3, False, ["exact19", "exact117", "exact125", "exact125"]),
+    ((254, 256, 256), False, ["exact19", "generic"] + ["exact125"] * 3),
+    ((254, 256, 256), True, ["compressed19"] + ["stored27"] * 4),
+    ((69, 77, 69), False, ["generic"] * 3),
+    ((69, 77, 69), True, ["generic", "generic", "stored27"]),
+    ((40, 36, 33), False, ["generic"] * 2),
+], ids=str)
+def test_plan_names_each_levels_form(shape, collapse, forms):
+    """The form each level's plan names: the exact chain's exact19 (the
+    compressed operator -> 117 planes), exact117, then exact125 on
+    cell-centred levels; the collapsed chain's compressed19, then stored27,
+    as before the exact forms; ``generic`` where a level or the one above
+    has a vertex-centred (odd) axis."""
+    assert [plan.form for _, plan in _chain_plans(shape, collapse)] == forms
+
+
+def test_pruned_and_other_tables_take_the_generic_form():
+    """A pruned exact level (``galerkin_prune_tol > 0``) and radius-2
+    operators that are not the exact chain's fall to the generic form, as
+    do the collapsed variant of the exact chain's tables."""
+    op = _fine_op((16, 16, 16), "compressed")
+    level = galerkin.assemble_galerkin_parabolic(op, (CELL,) * 3)
+    assert _plan(level, (CELL,) * 3, False).form == "exact117"
+    pruned = galerkin.prune_stored_operator(level, 1e-3)
+    assert len(pruned.offsets) < len(level.offsets)
+    assert _plan(pruned, (CELL,) * 3, False).form == "generic"
+    assert _plan(level, (CELL,) * 3, True).form == "generic"
+    # the 5^3 box in another order, and without one off-centre plane
+    box = _fine_op((8, 8, 8), "random125")
+    flipped = StencilOperator(box.coeffs.flip(0), box.offsets[::-1])
+    assert _plan(box, (CELL,) * 3, False).form == "exact125"
+    assert _plan(flipped, (CELL,) * 3, False).form == "generic"
+    short = StencilOperator(box.coeffs[1:], box.offsets[1:])
+    assert _plan(short, (CELL,) * 3, False).form == "generic"
+
+
+@pytest.mark.parametrize("shape", [(512,) * 3, (254, 256, 256), (16, 16, 16)], ids=str)
+@pytest.mark.parametrize("collapse", [True, False], ids=["collapsed", "exact"])
+def test_compiled_in_rows_are_each_levels_interior_rows(shape, collapse):
+    """The interior rows the compiled-in forms carry (``cg.interior_row``,
+    the kernel's ``cell_weight`` and ``exact_weight`` mirrored) equal the
+    plan's rows from ``pair_rows`` on every level's interior run, on each
+    axis the form reads them on; each exact level's tables, re-indexed to
+    their windows (``window_table``), hold that row on the run and zeros
+    outside its non-zero entries everywhere."""
+    for lvl, plan in _chain_plans(shape, collapse):
+        if plan.form == "generic":
+            continue
+        row = cg.interior_row(plan.A, plan.O)
+        exact = plan.form.startswith("exact")
+        for k in range(3 if exact else 2):
+            lo, hi = plan.runs[2 * k], plan.runs[2 * k + 1]
+            if lo < hi:
+                np.testing.assert_array_equal(plan.interior[k], row)
+        if not exact:
+            continue
+        cz, cy, cx = plan.coarse_shape
+        s, w = plan.starts, plan.weights
+        for k, (a, b) in enumerate(((cz, cz + cy), (cz + cy, cz + cy + cx), (0, cz))):
+            win = cg.window_table(s[a:b], w[a:b])
+            lo, hi = plan.runs[2 * k], plan.runs[2 * k + 1]  # y, x, z
+            for j in range(lo, hi):
+                np.testing.assert_array_equal(win[j], row)
+            assert not (win != 0)[:, row == 0].any()
 
 
 @pytest.mark.parametrize("fine_n,centering", [(512, CELL), (65, VERTEX), (9, VERTEX),
